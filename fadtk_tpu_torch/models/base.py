@@ -1,0 +1,142 @@
+"""Base class for embedding models.
+
+Contract parity with the reference's ``ModelLoader`` (reference
+fadtk/model_loader.py:21-86) and with ``fadtk_tpu.models.base``: a model has a
+unique ``name``, an output feature dimension, an input sample rate and an
+optional minimum length; it loads lazily; ``get_embedding`` returns a float16
+``(n_frames, num_features)`` array for storage (the float32 -> float16
+downcast at fadtk/model_loader.py:47-48 is part of the on-disk cache format).
+
+Torch specifics: the weights live in ``self.module`` (an ``nn.Module``) on
+``self.device``, which is chosen once at load (``utils.resolve_device``) and
+passed down to every tensor the model makes.
+"""
+
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+
+import numpy as np
+import torch
+
+from ..utils import PathLike, log
+
+
+class EmbeddingModel(ABC):
+    """One embedding model variant (one registry name)."""
+
+    def __init__(self, name: str, num_features: int, sr: int, min_len: int = -1):
+        self.name = name
+        self.num_features = num_features
+        self.sr = sr
+        self.min_len = min_len
+        self.loaded = False
+        self.module: torch.nn.Module | None = None
+        self.device: torch.device | None = None
+        self._bf16_active: bool | None = None  # latched at first ensure_loaded
+
+    # ------------------------------------------------------------------ #
+    # Loading / precision
+    # ------------------------------------------------------------------ #
+
+    @abstractmethod
+    def load_model(self) -> None:
+        """Materialize ``self.module`` on ``self.device`` (converted checkpoint
+        or random weights for tests)."""
+
+    @property
+    def bf16(self) -> bool:
+        """Is the bf16 throughput mode active for this model (models/precision.py)?
+
+        Latched at first ``ensure_loaded``: once the module is cast (or loaded
+        float32), flipping FADTK_TPU_BF16 cannot desynchronize the compute
+        dtype from ``cache_name``.
+        """
+        if self._bf16_active is not None:
+            return self._bf16_active
+        from .precision import bf16_enabled
+
+        return bf16_enabled()
+
+    @property
+    def cache_name(self) -> str:
+        """Name keying embedding/stats caches. bf16-mode embeddings differ
+        numerically from the float32 reference-parity ones, so they live under
+        a distinct ``<name>-bf16`` cache and can never mix."""
+        return f"{self.name}-bf16" if self.bf16 else self.name
+
+    def ensure_loaded(self) -> None:
+        if self.loaded:
+            return
+        self._bf16_active = self.bf16  # latch the mode with the weights
+        if not self._bf16_active:
+            # float32 is the parity path: cuDNN convolutions default to TF32
+            # (~3 significant digits, and the conv extractor is 7 convs deep),
+            # so TF32 goes off for convolutions and matmuls alike, once, here
+            # where the float32 model loads.
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.load_model()
+        self.module.eval()
+        if self._bf16_active:
+            self.module.to(torch.bfloat16)  # compute dtype follows the weights
+            log.info(f"{self.name}: bf16 throughput mode (weights cast to bfloat16)")
+        self.loaded = True
+
+    # ------------------------------------------------------------------ #
+    # Audio input
+    # ------------------------------------------------------------------ #
+
+    def load_wav(self, wav_file: PathLike) -> np.ndarray:
+        """Read a converted 16-bit PCM wav as float in [-1, 1).
+
+        Parity: reference fadtk/model_loader.py:63-70 (int16 / 32768, then
+        minimum-length zero padding).
+        """
+        from ..audio.wavio import read_wav_int16
+
+        wav_data, _sr = read_wav_int16(wav_file)
+        if wav_data.ndim == 2:  # (frames, channels) -> keep channel-major parity
+            wav_data = wav_data.astype(np.float64)
+        wav = wav_data / 32768.0
+        return self.enforce_min_len(wav)
+
+    def enforce_min_len(self, audio: np.ndarray) -> np.ndarray:
+        """Zero-pad audio shorter than ``min_len`` seconds, with a warning.
+
+        Parity: reference fadtk/model_loader.py:72-86.
+        """
+        if self.min_len < 0:
+            return audio
+        if audio.shape[0] < self.min_len * self.sr:
+            log.warning(
+                f"Audio is too short for {self.name}. The model requires a minimum "
+                f"length of {self.min_len}s, audio is {audio.shape[0] / self.sr:.2f}s. "
+                "Padding with zeros."
+            )
+            pad = int(np.ceil(self.min_len * self.sr - audio.shape[0]))
+            audio = np.pad(audio, (0, pad))
+        return audio
+
+    # ------------------------------------------------------------------ #
+    # Embedding
+    # ------------------------------------------------------------------ #
+
+    @abstractmethod
+    def _embed(self, audio: np.ndarray) -> np.ndarray:
+        """Embed one clip -> (n_frames, num_features)."""
+
+    def get_embedding(self, audio: np.ndarray) -> np.ndarray:
+        """Embed and downcast for storage (parity: fadtk/model_loader.py:40-50)."""
+        self.ensure_loaded()
+        embd = np.asarray(self._embed(audio))
+        if embd.dtype == np.float32:
+            embd = embd.astype(np.float16)
+        return embd
+
+    def embed_batch(self, clips: list[np.ndarray]) -> list[np.ndarray]:
+        """Embed several clips; subclasses override with batched device code."""
+        return [self.get_embedding(c) for c in clips]
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__} {self.name} d={self.num_features} sr={self.sr}>"

@@ -1,0 +1,36 @@
+"""Model registry: the variants ported so far, built lazily.
+
+``fadtk_tpu.models.registry`` registers every variant the reference does
+(fadtk/model_loader.py:676-701). The port registers the families it has:
+
+    w2v2-base[-1..11] (12 = default name), w2v2-large[-1..23] (24 = default).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from .base import EmbeddingModel
+
+
+def _builders() -> list[Callable[[], EmbeddingModel]]:
+    from .wav2vec2 import W2V2Model
+
+    builders: list[Callable[[], EmbeddingModel]] = []
+    builders += [lambda v=v: W2V2Model("base", layer=v) for v in range(1, 13)]
+    builders += [lambda v=v: W2V2Model("large", layer=v) for v in range(1, 25)]
+    return builders
+
+
+def get_all_models() -> list[EmbeddingModel]:
+    """All registered model variants."""
+    return [b() for b in _builders()]
+
+
+def get_model(name: str) -> EmbeddingModel:
+    """Look up a single model variant by registry name."""
+    for b in _builders():
+        m = b()
+        if m.name == name:
+            return m
+    raise KeyError(f"Unknown model: {name}")

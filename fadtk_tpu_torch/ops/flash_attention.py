@@ -1,0 +1,199 @@
+"""Packed-heads flash attention: the hand-written Hopper kernel and its plain twin.
+
+``flash_attention_packed`` is the port of
+``fadtk_tpu/ops/flash_attention.py::flash_attention_packed`` (no-bias form):
+non-causal attention over q, k, v in the (B, T, H*D) layout the projection
+GEMMs write, with a per-batch prefix key mask ``n_valid`` (clamped to
+[1, T]), float32 logits / softmax state / accumulator, and the output in the
+input dtype. The kernel is CUDA C++ for sm_90a
+(``fadtk_tpu_torch/csrc/flash_attention_packed.cu``; its header says what
+bounds it and how it is laid out).
+
+Routing is by the tensor's device, and only by it:
+
+- CPU tensors go to ``flash_attention_packed_reference``, the plain torch twin
+  (same signature, keys masked at ``n_valid``, every row finite);
+- CUDA tensors launch the kernel, or raise. There is no fallback.
+
+The kernel is built at first use from the source in the repository with
+``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
+plain C entry point, loaded with ctypes. The library lands in
+``build/fadtk_tpu_torch/`` under a name keyed on a hash of the source and the
+flags, so an edit rebuilds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from ..utils import log
+
+HEAD_DIM = 64
+_NEG = -0.7 * torch.finfo(torch.float32).max  # finite "-inf" (NaN-safe)
+
+_REPO = Path(__file__).resolve().parents[2]
+_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_packed.cu"
+BUILD_DIR = _REPO / "build" / "fadtk_tpu_torch"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_enabled(device: torch.device) -> bool:
+    """Use the fused kernel? ``FADTK_TPU_FLASH_ATTENTION`` decides when set;
+    by default it is on for CUDA tensors and off on the CPU, where the
+    encoder keeps its plain attention (the twin still serves a forced-on
+    call there)."""
+    env = os.environ.get("FADTK_TPU_FLASH_ATTENTION")
+    if env is not None and env.strip():
+        from ..models.precision import _TRUTHY
+
+        return env.strip().lower() in _TRUTHY
+    return device.type == "cuda"
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(found).exists():
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin): the flash-attention kernel "
+            f"is built from {_SOURCE} at first use on a CUDA machine"
+        )
+    return found
+
+
+def library_path() -> Path:
+    """Build (if needed) the kernel library and return its path."""
+    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"libfadtk_flash_attention_packed-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+    log.info(f"building {out.name} with nvcc")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)  # ptxas -v report
+    os.replace(tmp, out)
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(library_path()))
+            fn = lib.fadtk_flash_attention_packed
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            _LIB = lib
+        return _LIB
+
+
+def flash_attention_packed_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    n_valid: torch.Tensor | None = None,
+    *,
+    num_heads: int,
+) -> torch.Tensor:
+    """Plain torch twin of the kernel: same signature and contract.
+
+    Keys ``>= n_valid[b]`` (clamped to [1, T]) are masked with the kernel's
+    finite ``_NEG``; logits and softmax are float32; p is cast to the input
+    dtype before the p·v product, as in the kernel. Rows ``>= n_valid`` attend
+    over the valid prefix, so every row is finite (the kernel zeroes whole
+    64-row tiles beyond ``n_valid`` instead; callers mask padded rows either
+    way).
+    """
+    b, t, hd = q.shape
+    d = hd // num_heads
+    if n_valid is None:
+        nv = torch.full((b,), t, dtype=torch.int64, device=q.device)
+    else:
+        nv = n_valid.to(device=q.device, dtype=torch.int64).clamp(1, t)
+    key_live = torch.arange(t, device=q.device)[None, :] < nv[:, None]  # (B, T)
+
+    def heads(x):
+        return x.reshape(b, t, num_heads, d).transpose(1, 2).float()
+
+    logits = heads(q) @ heads(k).transpose(-1, -2) * (d ** -0.5)
+    logits = logits.masked_fill(~key_live[:, None, None, :], _NEG)
+    w = torch.softmax(logits, dim=-1).to(v.dtype).float()
+    out = w @ heads(v)  # (B, H, T, D) f32
+    return out.to(q.dtype).transpose(1, 2).reshape(b, t, hd)
+
+
+def flash_attention_packed(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    n_valid: torch.Tensor | None = None,
+    *,
+    num_heads: int,
+) -> torch.Tensor:
+    """softmax(q kᵀ/√d) v per head over (B, T, H*D)-packed q/k/v, returning
+    (B, T, H*D) ready for out_proj. ``n_valid``: (B,) valid key counts.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (bf16 or
+    float32, head dim 64, contiguous, 16-byte aligned) or raise.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_packed_reference(q, k, v, n_valid, num_heads=num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_packed: unsupported device {q.device}")
+    if q.dim() != 3:
+        raise ValueError(f"expected (B, T, H*D) tensors, got {tuple(q.shape)}")
+    b, t, hd = q.shape
+    if hd != num_heads * HEAD_DIM:
+        raise ValueError(
+            f"flash_attention_packed: head dim {hd // max(num_heads, 1)} "
+            f"(H*D={hd}, H={num_heads}); the kernel takes D={HEAD_DIM} only"
+        )
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_attention_packed: dtype {q.dtype} (bf16 or float32 only)")
+    for name, x in (("k", k), ("v", v)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"flash_attention_packed: {name} does not match q "
+                             f"({tuple(x.shape)} {x.dtype} {x.device})")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"flash_attention_packed: {name} must be contiguous and 16-byte aligned")
+    if n_valid is None:
+        nv = torch.full((b,), t, dtype=torch.int32, device=q.device)
+    else:
+        if n_valid.shape != (b,):
+            raise ValueError(f"n_valid must have shape ({b},), got {tuple(n_valid.shape)}")
+        nv = n_valid.to(device=q.device, dtype=torch.int32).contiguous()
+
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _library().fadtk_flash_attention_packed(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), nv.data_ptr(), out.data_ptr(),
+        b, t, num_heads, _DTYPE_CODE[q.dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_packed: kernel launch failed, cudaError {rc}")
+    flash_attention_packed.launches += 1
+    return out
+
+
+# Kernel launches since the last reset (``chip_smoke.py`` zeroes it and
+# reads it around the main path to show the path went through the kernel).
+flash_attention_packed.launches = 0
