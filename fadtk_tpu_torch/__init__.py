@@ -8,7 +8,7 @@ the device ``FADTK_TPU_TORCH_DEVICE`` names (default ``cuda``).
 
 - ``fadtk_tpu_torch.audio``   — WAV I/O and decode (numpy; libav for other formats).
 - ``fadtk_tpu_torch.dsp``     — the host Kaiser-sinc resampler.
-- ``fadtk_tpu_torch.models``  — the speech encoder (w2v2) as ``nn.Module``s + registry.
+- ``fadtk_tpu_torch.models``  — the speech encoder (w2v2, HuBERT, WavLM, MERT) as ``nn.Module``s + registry.
 - ``fadtk_tpu_torch.ops``     — hand-written CUDA kernels beside their plain twins.
 - ``fadtk_tpu_torch.metric``  — host statistics and the Frechet distance.
 - ``fadtk_tpu_torch.runner``  — cache layout, batched embedding, scoring.

@@ -9,12 +9,11 @@ Two routes:
   (tests/test_torch_host.py pins it against ``fadtk_tpu.audio.decode``), and
   it needs no native library, so the common convert-cache input decodes on
   machines without FFmpeg development files.
-- Every other format goes through the native libav decoder of the JAX package
-  (``fadtk_tpu/native/decode.cc``), loaded by path with ctypes at first use.
-  A prebuilt ``fadtk_tpu/native/libfadtk_audio.so`` that is newer than its
-  source is used as it is; otherwise ``fadtk_tpu/native/build.sh`` builds one
-  into ``build/fadtk_tpu_torch/``. ``FADTK_TPU_NATIVE_LIB`` names a prebuilt
-  library instead.
+- Every other format goes through the port's native libav decoder
+  (``fadtk_tpu_torch/native/decode.cc``), loaded by path with ctypes at first
+  use. ``fadtk_tpu_torch/native/build.sh`` builds it into
+  ``build/fadtk_tpu_torch/`` (again whenever the source is newer than the
+  library). ``FADTK_TPU_NATIVE_LIB`` names a prebuilt library instead.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ from ..utils import PathLike, log
 from .wavio import read_wav_int16
 
 _REPO = Path(__file__).resolve().parents[2]
-_NATIVE_DIR = _REPO / "fadtk_tpu" / "native"
+_NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
 _BUILD_DIR = _REPO / "build" / "fadtk_tpu_torch"
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -41,11 +40,9 @@ def _library_path() -> Path:
     env = os.environ.get("FADTK_TPU_NATIVE_LIB")
     if env:
         return Path(env)
-    src = _NATIVE_DIR / "decode.cc"
-    for lib in (_NATIVE_DIR / "libfadtk_audio.so", _BUILD_DIR / "libfadtk_audio.so"):
-        if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
-            return lib
     out = _BUILD_DIR / "libfadtk_audio.so"
+    if out.exists() and out.stat().st_mtime >= (_NATIVE_DIR / "decode.cc").stat().st_mtime:
+        return out
     out.parent.mkdir(parents=True, exist_ok=True)
     log.info("Building native audio decoder (libav)...")
     try:

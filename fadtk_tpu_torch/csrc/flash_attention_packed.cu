@@ -2,11 +2,18 @@
 // Hopper (sm_90a).
 //
 // Replaces fadtk_tpu/ops/flash_attention.py::flash_attention_packed (the
-// Pallas body _kernel_packed), no-bias form:
+// Pallas body _kernel_packed), in both of its forms:
 //
-//   out[b, t, h*D:(h+1)*D] = softmax_s(q_h[t] . k_h[s] / sqrt(D)) v_h[s]
+//   out[b, t, h*D:(h+1)*D] = softmax_s(q_h[t] . k_h[s] / sqrt(D)
+//                                      [+ gate[b, t, h] * pb[h, t, s]]) v_h[s]
 //
 // over keys s < n_valid[b] (a prefix key mask, n_valid clamped to [1, T]).
+// The bracketed term is WavLM's factorized gated relative-position bias
+// (has_bias=True in the Pallas kernel, its lines 559-562): pb (H, T, T) and
+// gate (B, T, H), both float32, added after the 1/sqrt(D) scale and before
+// the mask. The dense (B, H, T, T) bias is never built. pb and gate arrive
+// unpadded (the Pallas wrapper pads them to its block multiple), so every pb
+// read at a row or column >= T and every gate read at a row >= T is guarded.
 // q, k, v and out are (B, T, H*D) row-major, the layout the projection GEMMs
 // write: head h is read in place at column h*D, with no head transposes.
 // D = 64. Logits, the running max m, the running sum l and the accumulator
@@ -35,6 +42,14 @@
 // - f32: both products run as FMA on CUDA cores (tensor-core TF32 would keep
 //   ~3 digits and break the f32 parity contract);
 // - the softmax state (m, l) and the output accumulator stay in registers.
+//
+// The bias form adds, per 64x64 tile, a read of the pb tile (16 KB of f32,
+// batch-independent: 12 MB at H=12, T=499, which the 50 MB L2 keeps for the
+// B query CTAs of a head) and one gate value per query row. In bf16 each warp
+// adds it to its own 16 rows of the logits in shared memory with coalesced
+// 128-byte row reads, so the kernel keeps its 45,056 bytes of static shared
+// memory; in f32 the pb tile is staged in the P buffer, whose row r is read
+// and then overwritten by the same two threads.
 //
 // The TPU kernel's VMEM block choices (_pick_block, _fit_packed_blocks) were
 // deliberately not carried over: they fit 16 MB of VMEM and a 128x128 MXU.
@@ -80,11 +95,13 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
   }
 }
 
+template <bool BIAS>
 __global__ void __launch_bounds__(THREADS)
 attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const int* __restrict__ n_valid,
+                 const float* __restrict__ pb, const float* __restrict__ gate,
                  __nv_bfloat16* __restrict__ out, int T, int H) {
   using namespace nvcuda;
   // QP holds the Q tile, then each warp's probabilities P over its own 16
@@ -127,6 +144,13 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   float o[32];
 #pragma unroll
   for (int j = 0; j < 32; ++j) o[j] = 0.f;
+  // Bias form: lane i < 16 holds the gate of the warp's query row i.
+  const float* pb_h = BIAS ? pb + (size_t)h * T * T : nullptr;
+  float g_lane = 0.f;
+  if (BIAS) {
+    const int gr = q0 + warp * 16 + (lane & 15);
+    if (gr < T) g_lane = gate[((size_t)b * T + gr) * H + h];
+  }
 
   const int n_tiles = (nv + BK - 1) / BK;
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -151,13 +175,29 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncwarp();
 
+    if (BIAS) {
+      // S = S / sqrt(D) + gate * pb over the warp's 16 x 64 logits: each
+      // step reads 32 consecutive keys of one pb row. Rows >= T and keys
+      // >= n_valid (masked below) are not read.
+#pragma unroll 4
+      for (int it = 0; it < 32; ++it) {
+        const int row = it >> 1, col = ((it & 1) << 5) + lane;
+        const int qr = q0 + warp * 16 + row, kc = k0 + col;
+        const float g = __shfl_sync(0xffffffffu, g_lane, row);
+        float* sp = S + (warp * 16 + row) * LDS + col;
+        const float bias = (qr < T && kc < nv) ? g * pb_h[(size_t)qr * T + kc] : 0.f;
+        *sp = *sp * SCALE + bias;
+      }
+      __syncwarp();
+    }
+
     // Online softmax over this tile, two lanes per row.
     float s[32];
     float mx = NEG;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int c = 2 * j + half;
-      s[j] = (k0 + c < nv) ? srow[c] * SCALE : NEG;
+      s[j] = (k0 + c < nv) ? (BIAS ? srow[c] : srow[c] * SCALE) : NEG;
       mx = fmaxf(mx, s[j]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -233,9 +273,11 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
   }
 }
 
+template <bool BIAS>
 __global__ void __launch_bounds__(THREADS)
 attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const int* __restrict__ n_valid,
+                const float* __restrict__ pb, const float* __restrict__ gate,
                 float* __restrict__ out, int T, int H) {
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -263,6 +305,8 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float o[32];
 #pragma unroll
   for (int j = 0; j < 32; ++j) o[j] = 0.f;
+  const float* pb_h = BIAS ? pb + (size_t)h * T * T : nullptr;
+  const float g_r = (BIAS && q0 + r < T) ? gate[((size_t)b * T + q0 + r) * H + h] : 0.f;
 
   const int n_tiles = (nv + BK - 1) / BK;
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -270,6 +314,13 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     load_tile_f32(Ks, k + base, k0, T, HD);
     load_tile_f32(Vs, v + base, k0, T, HD);
+    if (BIAS) {  // the pb tile, staged in Ps; rows >= T, keys >= n_valid read as 0
+      for (int i = threadIdx.x; i < BQ * BK; i += THREADS) {
+        const int row = i >> 6, c = i & 63;
+        Ps[row * LDF + c] =
+            (q0 + row < T && k0 + c < nv) ? pb_h[(size_t)(q0 + row) * T + k0 + c] : 0.f;
+      }
+    }
     __syncthreads();
 
     float s[32];
@@ -283,7 +334,10 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float mx = NEG;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      s[j] = (k0 + 2 * j + half < nv) ? s[j] * SCALE : NEG;
+      const int c = 2 * j + half;
+      float x = s[j] * SCALE;
+      if (BIAS) x += g_r * Ps[r * LDF + c];  // this thread rewrites Ps[r][c] below
+      s[j] = (k0 + c < nv) ? x : NEG;
       mx = fmaxf(mx, s[j]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -319,30 +373,42 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <bool BIAS>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* n_valid,
+                   const float* pb, const float* gate, void* out, int B, int T, int H,
+                   int dtype, cudaStream_t s) {
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
+  if (dtype == 1) {
+    attn_bf16_kernel<BIAS><<<grid, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), n_valid, pb, gate,
+        static_cast<__nv_bfloat16*>(out), T, H);
+  } else if (dtype == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_f32_kernel<BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
+    if (e != cudaSuccess) return e;
+    attn_f32_kernel<BIAS><<<grid, THREADS, F32_SMEM, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), n_valid, pb, gate, static_cast<float*>(out), T, H);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Pointers are device pointers;
-// dtype 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
+// pb (H, T, T) and gate (B, T, H) are float32 and both null for the no-bias
+// form; dtype 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
 // launch: 0 when the launch was accepted.
 extern "C" int fadtk_flash_attention_packed(const void* q, const void* k, const void* v,
-                                            const int* n_valid, void* out, int B, int T,
+                                            const int* n_valid, const float* pb,
+                                            const float* gate, void* out, int B, int T,
                                             int H, int dtype, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + BQ - 1) / BQ, H, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    attn_bf16_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), n_valid, static_cast<__nv_bfloat16*>(out), T, H);
-  } else if (dtype == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        attn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    attn_f32_kernel<<<grid, THREADS, F32_SMEM, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), n_valid, static_cast<float*>(out), T, H);
-  } else {
+  if (B <= 0 || T <= 0 || H <= 0 || (pb == nullptr) != (gate == nullptr))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(pb ? launch<true>(q, k, v, n_valid, pb, gate, out, B, T, H, dtype, s)
+                  : launch<false>(q, k, v, n_valid, pb, gate, out, B, T, H, dtype, s));
 }

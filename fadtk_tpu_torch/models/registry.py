@@ -1,9 +1,13 @@
 """Model registry: the variants ported so far, built lazily.
 
 ``fadtk_tpu.models.registry`` registers every variant the reference does
-(fadtk/model_loader.py:676-701). The port registers the families it has:
+(fadtk/model_loader.py:676-701). The port registers the speech-encoder
+families, in the JAX package's order:
 
-    w2v2-base[-1..11] (12 = default name), w2v2-large[-1..23] (24 = default).
+    MERT-v1-95M[-1..11] (12 = default name);
+    w2v2-base[-1..11], w2v2-large[-1..23] (24 = default);
+    hubert-base[-..], hubert-large[-..];
+    wavlm-base[-..], wavlm-base-plus[-..], wavlm-large[-..].
 """
 
 from __future__ import annotations
@@ -14,11 +18,20 @@ from .base import EmbeddingModel
 
 
 def _builders() -> list[Callable[[], EmbeddingModel]]:
+    from .hubert import HuBERTModel
+    from .mert import MERTModel
     from .wav2vec2 import W2V2Model
+    from .wavlm import WavLMModel
 
     builders: list[Callable[[], EmbeddingModel]] = []
+    builders += [lambda v=v: MERTModel(layer=v) for v in range(1, 13)]
     builders += [lambda v=v: W2V2Model("base", layer=v) for v in range(1, 13)]
     builders += [lambda v=v: W2V2Model("large", layer=v) for v in range(1, 25)]
+    builders += [lambda v=v: HuBERTModel("base", layer=v) for v in range(1, 13)]
+    builders += [lambda v=v: HuBERTModel("large", layer=v) for v in range(1, 25)]
+    builders += [lambda v=v: WavLMModel("base", layer=v) for v in range(1, 13)]
+    builders += [lambda v=v: WavLMModel("base-plus", layer=v) for v in range(1, 13)]
+    builders += [lambda v=v: WavLMModel("large", layer=v) for v in range(1, 25)]
     return builders
 
 

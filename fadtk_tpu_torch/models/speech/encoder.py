@@ -1,4 +1,4 @@
-"""Shared speech-transformer encoder (wav2vec 2.0 family), standard attention.
+"""Shared speech-transformer encoder (wav2vec 2.0 / HuBERT / WavLM / MERT).
 
 The torch counterpart of ``fadtk_tpu/models/speech/encoder.py``, held against
 it in tests/test_torch_speech_encoder.py. Same numerics contract:
@@ -9,10 +9,12 @@ it in tests/test_torch_speech_encoder.py. Same numerics contract:
 - **Compute dtype follows the parameters.** float32 parameters give the
   reference-parity path; bfloat16 parameters the throughput path, where norm
   statistics, attention logits and softmax stay float32 (models/precision.py)
-  and attention runs the hand-written flash kernel.
-- **Module tree = parameter tree.** ``nn.ModuleDict``/``nn.ModuleList`` names
-  mirror the JAX pytree, so ``weights.store.params_from_jax`` maps a converted
-  ``.npz`` onto ``state_dict`` keys one to one.
+  and attention runs the hand-written flash kernel (WavLM's with its
+  factorized gated bias).
+- **Module tree = parameter tree.** ``nn.ModuleDict``/``nn.ModuleList`` and
+  ``Attention`` attribute names mirror the JAX pytree, so
+  ``weights.store.params_from_jax`` maps a converted ``.npz`` onto
+  ``state_dict`` keys one to one.
 
 Layouts: public functions take and return JAX's (B, T, C); the convolutions
 run in torch's (B, C, T) inside.
@@ -22,7 +24,9 @@ from __future__ import annotations
 
 import math
 import os
+from functools import lru_cache
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -42,15 +46,34 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 
+class Attention(nn.Module):
+    """Parameters of one attention block: the four projections and, for
+    WavLM, the gate projection ``gru_rel_pos_linear`` (head_dim -> 8), the
+    per-head ``gru_rel_pos_const`` and, on layer 0 only, the relative-position
+    table ``rel_attn_embed`` (num_buckets, H). A module of its own because an
+    ``nn.ModuleDict`` cannot hold the bare parameters."""
+
+    def __init__(self, cfg: SpeechEncoderConfig, first_layer: bool):
+        super().__init__()
+        h = cfg.hidden_size
+        self.q_proj = nn.Linear(h, h)
+        self.k_proj = nn.Linear(h, h)
+        self.v_proj = nn.Linear(h, h)
+        self.out_proj = nn.Linear(h, h)
+        if cfg.attention_type == "wavlm":
+            self.gru_rel_pos_linear = nn.Linear(cfg.head_dim, 8)
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(cfg.num_heads))
+            if first_layer:
+                self.rel_attn_embed = nn.Parameter(torch.zeros(cfg.num_buckets, cfg.num_heads))
+        elif cfg.attention_type != "standard":
+            raise ValueError(f"unknown attention_type {cfg.attention_type!r}")
+
+
 class SpeechEncoder(nn.Module):
     """Parameters of the encoder; ``forward`` is ``speech_encoder_forward``."""
 
     def __init__(self, cfg: SpeechEncoderConfig):
         super().__init__()
-        if cfg.attention_type != "standard":
-            raise NotImplementedError(
-                f"attention_type={cfg.attention_type!r} is not ported to fadtk_tpu_torch yet"
-            )
         self.cfg = cfg
         conv_layers = []
         in_ch = 1
@@ -72,11 +95,9 @@ class SpeechEncoder(nn.Module):
         if cfg.feat_proj_layer_norm:
             self.feature_projection["layer_norm"] = nn.LayerNorm(cfg.conv_dim[-1])
 
-        def layer():
+        def layer(i):
             return nn.ModuleDict({
-                "attention": nn.ModuleDict(
-                    {n: nn.Linear(h, h) for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
-                ),
+                "attention": Attention(cfg, first_layer=i == 0),
                 "layer_norm": nn.LayerNorm(h),
                 "feed_forward": nn.ModuleDict({
                     "intermediate_dense": nn.Linear(h, cfg.intermediate_size),
@@ -92,7 +113,7 @@ class SpeechEncoder(nn.Module):
                 groups=cfg.num_conv_pos_embedding_groups,
             ),
             "layer_norm": nn.LayerNorm(h),
-            "layers": nn.ModuleList([layer() for _ in range(cfg.num_layers)]),
+            "layers": nn.ModuleList([layer(i) for i in range(cfg.num_layers)]),
         })
 
     def forward(self, audio, num_valid=None, taps=None):
@@ -104,7 +125,8 @@ def init_speech_encoder(model: SpeechEncoder, generator: torch.Generator) -> Spe
     """Random weights drawn from ``generator``, with the JAX package's init
     scheme (``init_speech_encoder_params``): dense kernels U(±1/√in), zero
     biases, conv-extractor kernels N(0, 1)·0.5/√(k·in), positional kernel
-    N(0, 1)·0.02, norms at identity. The two frameworks draw different numbers;
+    N(0, 1)·0.02, norms at identity; WavLM's gate constants at one and its
+    relative-position table N(0, 1)·0.02. The two frameworks draw different numbers;
     parity tests carry the JAX weights across through the ``.npz`` instead."""
     for m in model.modules():
         if isinstance(m, nn.Linear):
@@ -123,6 +145,12 @@ def init_speech_encoder(model: SpeechEncoder, generator: torch.Generator) -> Spe
     pos = model.encoder["pos_conv"]
     pos.weight.normal_(generator=generator).mul_(0.02)
     pos.bias.zero_()
+    for layer in model.encoder["layers"]:
+        attn = layer["attention"]
+        if hasattr(attn, "gru_rel_pos_const"):
+            attn.gru_rel_pos_const.fill_(1.0)
+        if hasattr(attn, "rel_attn_embed"):
+            attn.rel_attn_embed.normal_(generator=generator).mul_(0.02)
     return model
 
 
@@ -242,10 +270,10 @@ def use_flash_attention(dtype, frame_valid, t: int | None, device: torch.device)
     return False
 
 
-def standard_attention(cfg: SpeechEncoderConfig, p: nn.ModuleDict, x, key_bias, frame_valid=None):
-    q = p["q_proj"](x)
-    k = p["k_proj"](x)
-    v = p["v_proj"](x)
+def standard_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, frame_valid=None):
+    q = p.q_proj(x)
+    k = p.k_proj(x)
+    v = p.v_proj(x)
     if use_flash_attention(x.dtype, frame_valid, x.shape[1], x.device):
         # Packed-heads kernel: consumes the projection layout directly, no
         # (B, H, T, D) transposes.
@@ -255,7 +283,85 @@ def standard_attention(cfg: SpeechEncoderConfig, p: nn.ModuleDict, x, key_bias, 
     else:
         qh, kh, vh = (_split_heads(y, cfg.num_heads) for y in (q, k, v))
         out = _attention_core(qh, kh, vh, key_bias)
-    return p["out_proj"](out)
+    return p.out_proj(out)
+
+
+def _wavlm_relative_buckets(num_buckets: int, max_distance: int, t: int) -> np.ndarray:
+    """T5-style log-spaced relative position buckets (HF WavLMAttention
+    ._relative_positions_bucket), (T, T) int64; static per sequence length.
+    Computed in numpy float64 exactly as the JAX package does, so the two
+    agree bit for bit (HF computes them in float32 and is not the
+    reference here)."""
+    half = num_buckets // 2
+    rel = np.arange(t)[None, :] - np.arange(t)[:, None]  # memory - context
+    buckets = (rel > 0).astype(np.int64) * half
+    rel = np.abs(rel)
+    max_exact = half // 2
+    is_small = rel < max_exact
+    large = max_exact + (
+        np.log(np.maximum(rel, 1) / max_exact)
+        / math.log(max_distance / max_exact)
+        * (half - max_exact)
+    ).astype(np.int64)
+    large = np.minimum(large, half - 1)
+    buckets += np.where(is_small, rel, large)
+    return buckets
+
+
+@lru_cache(maxsize=16)
+def _bucket_index(num_buckets: int, max_distance: int, t: int, device: torch.device):
+    """The bucket table as an index tensor on ``device``, kept: a pageable
+    host-to-device copy in every forward would block the host until the
+    work queued before it (the conv frontend) has run, and leave the card
+    idle while the layers are then launched."""
+    buckets = _wavlm_relative_buckets(num_buckets, max_distance, t)
+    return torch.from_numpy(buckets).to(device)
+
+
+def wavlm_position_bias(cfg: SpeechEncoderConfig, rel_attn_embed: torch.Tensor, t: int):
+    """(H, T, T) un-gated relative position bias from the layer-0 table, in
+    the table's dtype, contiguous."""
+    buckets = _bucket_index(cfg.num_buckets, cfg.max_bucket_distance, t, rel_attn_embed.device)
+    return rel_attn_embed[buckets].permute(2, 0, 1).contiguous()  # (T, T, H) -> (H, T, T)
+
+
+def wavlm_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, position_bias,
+                    frame_valid=None):
+    """WavLM gated relative position bias attention (HF WavLMAttention).
+
+    The gate is computed in the compute dtype from the *unprojected* per-head
+    hidden states: proj -> (..., 2, 4).sum(-1) -> sigmoid -> a * (b * const - 1)
+    + 2, in the (B, T, H) layout the kernel reads (no transposes on the bf16
+    route). bf16 takes the flash kernel, which adds gate ⊙ position_bias per
+    tile without building the dense (B, H, T, T) term; gate and bias are cast
+    to float32 for it. float32 always takes the plain dense path, whatever
+    ``FADTK_TPU_FLASH_F32`` says, as the JAX package does (its routing call
+    passes no length).
+    """
+    b, t, _ = x.shape
+    hs = x.reshape(b, t, cfg.num_heads, cfg.head_dim)
+    proj = p.gru_rel_pos_linear(hs).reshape(b, t, cfg.num_heads, 2, 4).sum(-1)
+    gates = torch.sigmoid(proj)
+    gate_a, gate_b = gates[..., 0], gates[..., 1]  # (B, T, H)
+    const = p.gru_rel_pos_const.reshape(1, 1, cfg.num_heads)
+    gate_bth = gate_a * (gate_b * const - 1.0) + 2.0  # (B, T, H)
+
+    q = p.q_proj(x)
+    k = p.k_proj(x)
+    v = p.v_proj(x)
+    if use_flash_attention(x.dtype, frame_valid, None, x.device):  # no length: bf16 only
+        from ...ops.flash_attention import flash_attention_packed
+
+        out = flash_attention_packed(
+            q, k, v, frame_valid, position_bias.float(), gate_bth.float().contiguous(),
+            num_heads=cfg.num_heads,
+        )
+    else:
+        qh, kh, vh = (_split_heads(y, cfg.num_heads) for y in (q, k, v))
+        gate = gate_bth.transpose(1, 2)  # (B, H, T)
+        gated_bias = gate[..., None] * position_bias[None]  # (B, H, T, T)
+        out = _attention_core(qh, kh, vh, gated_bias + key_bias)
+    return p.out_proj(out)
 
 
 # --------------------------------------------------------------------------- #
@@ -267,20 +373,23 @@ def _feed_forward(p: nn.ModuleDict, x):
     return p["output_dense"](gelu(p["intermediate_dense"](x)))
 
 
-def encoder_layer(cfg: SpeechEncoderConfig, p: nn.ModuleDict, x, key_bias, frame_valid=None):
+def encoder_layer(cfg: SpeechEncoderConfig, p: nn.ModuleDict, x, key_bias, position_bias,
+                  frame_valid=None):
     eps = cfg.layer_norm_eps
+    if cfg.attention_type == "wavlm":
+        def attn(y):
+            return wavlm_attention(cfg, p["attention"], y, key_bias, position_bias, frame_valid)
+    else:
+        def attn(y):
+            return standard_attention(cfg, p["attention"], y, key_bias, frame_valid)
+
     if cfg.do_stable_layer_norm:
         # Pre-norm (HF Wav2Vec2EncoderLayerStableLayerNorm).
-        x = x + standard_attention(
-            cfg, p["attention"], _layer_norm(x, p["layer_norm"], eps), key_bias, frame_valid
-        )
+        x = x + attn(_layer_norm(x, p["layer_norm"], eps))
         x = x + _feed_forward(p["feed_forward"], _layer_norm(x, p["final_layer_norm"], eps))
     else:
         # Post-norm (HF Wav2Vec2EncoderLayer).
-        x = _layer_norm(
-            x + standard_attention(cfg, p["attention"], x, key_bias, frame_valid),
-            p["layer_norm"], eps,
-        )
+        x = _layer_norm(x + attn(x), p["layer_norm"], eps)
         x = _layer_norm(x + _feed_forward(p["feed_forward"], x), p["final_layer_norm"], eps)
     return x
 
@@ -349,13 +458,20 @@ def speech_encoder_forward(
     neg = torch.finfo(x.dtype).min
     key_bias = (1.0 - frame_mask)[:, None, None, :] * neg
 
+    if cfg.attention_type == "wavlm":  # once per forward, from layer 0's table
+        position_bias = wavlm_position_bias(
+            cfg, enc["layers"][0]["attention"].rel_attn_embed, x.shape[1]
+        )
+    else:
+        position_bias = None
+
     wanted = set(range(cfg.num_layers + 1)) if taps is None else set(taps)
     collected: dict[int, torch.Tensor] = {}
     if 0 in wanted:
         collected[0] = x
     n_run = max(wanted)
     for i, p in enumerate(enc["layers"][:n_run], start=1):
-        x = encoder_layer(cfg, p, x, key_bias, frame_valid)
+        x = encoder_layer(cfg, p, x, key_bias, position_bias, frame_valid)
         if i in wanted:
             collected[i] = x
 

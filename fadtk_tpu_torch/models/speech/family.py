@@ -1,13 +1,15 @@
 """EmbeddingModel wrapper for the speech-transformer family.
 
-Behaviour shared across the w2v2 variants (reference
-fadtk/model_loader.py:525-559), as in ``fadtk_tpu.models.speech.family``:
+Behaviour shared across the w2v2, HuBERT, WavLM and MERT variants (reference
+fadtk/model_loader.py:525-633, 254-288), as in
+``fadtk_tpu.models.speech.family``:
 
 - 6-minute truncation with a warning (fadtk/model_loader.py:549-551);
 - run the encoder once and tap one hidden-state layer (:556-557);
-- audio padded to 10 s length buckets and batched ``MAX_BATCH`` clips at a
-  time; the encoder's exact masking makes the valid frames equal an unpadded
-  run, so batching is score-neutral.
+- audio padded to 10 s length buckets at the model's own rate (160,000
+  samples / 499 frames at 16 kHz, 240,000 / 749 for MERT at 24 kHz) and
+  batched ``MAX_BATCH`` clips at a time; the encoder's exact masking makes
+  the valid frames equal an unpadded run, so batching is score-neutral.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ BUCKET_SECONDS = 10
 
 
 class SpeechEmbeddingModel(EmbeddingModel):
-    """Base for the w2v2 registry entries."""
+    """Base for the w2v2/hubert/wavlm/mert registry entries."""
 
     # Clips per device batch; the last partial group of a bucket pads rows.
     MAX_BATCH = 16

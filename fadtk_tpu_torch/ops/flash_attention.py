@@ -1,11 +1,15 @@
 """Packed-heads flash attention: the hand-written Hopper kernel and its plain twin.
 
 ``flash_attention_packed`` is the port of
-``fadtk_tpu/ops/flash_attention.py::flash_attention_packed`` (no-bias form):
-non-causal attention over q, k, v in the (B, T, H*D) layout the projection
-GEMMs write, with a per-batch prefix key mask ``n_valid`` (clamped to
-[1, T]), float32 logits / softmax state / accumulator, and the output in the
-input dtype. The kernel is CUDA C++ for sm_90a
+``fadtk_tpu/ops/flash_attention.py::flash_attention_packed``: non-causal
+attention over q, k, v in the (B, T, H*D) layout the projection GEMMs write,
+with a per-batch prefix key mask ``n_valid`` (clamped to [1, T]), float32
+logits / softmax state / accumulator, and the output in the input dtype.
+WavLM's factorized gated relative-position bias comes as two optional
+float32 operands, ``position_bias`` (H, T, T) and ``gate`` (B, T, H):
+``s = q·k/√d + gate[b, t, h] · position_bias[h, t, s]`` before the key mask,
+without ever building the dense (B, H, T, T) bias. The kernel is CUDA C++ for
+sm_90a
 (``fadtk_tpu_torch/csrc/flash_attention_packed.cu``; its header says what
 bounds it and how it is laid out).
 
@@ -100,7 +104,7 @@ def _library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path()))
             fn = lib.fadtk_flash_attention_packed
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             _LIB = lib
         return _LIB
 
@@ -110,18 +114,27 @@ def flash_attention_packed_reference(
     k: torch.Tensor,
     v: torch.Tensor,
     n_valid: torch.Tensor | None = None,
+    position_bias: torch.Tensor | None = None,
+    gate: torch.Tensor | None = None,
     *,
     num_heads: int,
 ) -> torch.Tensor:
     """Plain torch twin of the kernel: same signature and contract.
 
-    Keys ``>= n_valid[b]`` (clamped to [1, T]) are masked with the kernel's
-    finite ``_NEG``; logits and softmax are float32; p is cast to the input
-    dtype before the p·v product, as in the kernel. Rows ``>= n_valid`` attend
-    over the valid prefix, so every row is finite (the kernel zeroes whole
-    64-row tiles beyond ``n_valid`` instead; callers mask padded rows either
-    way).
+    With ``position_bias`` (H, T, T) and ``gate`` (B, T, H), both float32,
+    ``gate[b, t, h] · position_bias[h, t, s]`` is added to the scaled logits
+    in float32. Keys ``>= n_valid[b]`` (clamped to [1, T]) are then masked
+    with the kernel's finite ``_NEG``; logits and softmax are float32. As in
+    the kernel (and the Pallas kernel), the unnormalised ``p = exp(s - max)``
+    is cast to the input dtype before the p·v product, and the float32 sum
+    of p divides afterwards: rounding the normalised weights instead would
+    put a 2^-9 relative error on the largest weight of a peaked row. Rows
+    ``>= n_valid`` attend over the valid prefix, so every row is finite (the
+    kernel zeroes whole 64-row tiles beyond ``n_valid`` instead; callers mask
+    padded rows either way).
     """
+    if (position_bias is None) != (gate is None):
+        raise ValueError("position_bias and gate come together")
     b, t, hd = q.shape
     d = hd // num_heads
     if n_valid is None:
@@ -134,9 +147,11 @@ def flash_attention_packed_reference(
         return x.reshape(b, t, num_heads, d).transpose(1, 2).float()
 
     logits = heads(q) @ heads(k).transpose(-1, -2) * (d ** -0.5)
+    if position_bias is not None:
+        logits = logits + gate.float().transpose(1, 2)[..., None] * position_bias.float()[None]
     logits = logits.masked_fill(~key_live[:, None, None, :], _NEG)
-    w = torch.softmax(logits, dim=-1).to(v.dtype).float()
-    out = w @ heads(v)  # (B, H, T, D) f32
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    out = (p.to(v.dtype).float() @ heads(v)) / p.sum(dim=-1, keepdim=True)  # (B, H, T, D)
     return out.to(q.dtype).transpose(1, 2).reshape(b, t, hd)
 
 
@@ -145,17 +160,25 @@ def flash_attention_packed(
     k: torch.Tensor,
     v: torch.Tensor,
     n_valid: torch.Tensor | None = None,
+    position_bias: torch.Tensor | None = None,
+    gate: torch.Tensor | None = None,
     *,
     num_heads: int,
 ) -> torch.Tensor:
-    """softmax(q kᵀ/√d) v per head over (B, T, H*D)-packed q/k/v, returning
-    (B, T, H*D) ready for out_proj. ``n_valid``: (B,) valid key counts.
+    """softmax(q kᵀ/√d [+ gate·position_bias]) v per head over
+    (B, T, H*D)-packed q/k/v, returning (B, T, H*D) ready for out_proj.
+    ``n_valid``: (B,) valid key counts; ``position_bias`` (H, T, T) and
+    ``gate`` (B, T, H): float32, given together or not at all.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (bf16 or
     float32, head dim 64, contiguous, 16-byte aligned) or raise.
     """
+    if (position_bias is None) != (gate is None):
+        raise ValueError("flash_attention_packed: position_bias and gate come together")
     if q.device.type == "cpu":
-        return flash_attention_packed_reference(q, k, v, n_valid, num_heads=num_heads)
+        return flash_attention_packed_reference(
+            q, k, v, n_valid, position_bias, gate, num_heads=num_heads
+        )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_packed: unsupported device {q.device}")
     if q.dim() != 3:
@@ -181,19 +204,35 @@ def flash_attention_packed(
         if n_valid.shape != (b,):
             raise ValueError(f"n_valid must have shape ({b},), got {tuple(n_valid.shape)}")
         nv = n_valid.to(device=q.device, dtype=torch.int32).contiguous()
+    bias_ptrs = (None, None)
+    if position_bias is not None:
+        for name, x, shape in (("position_bias", position_bias, (num_heads, t, t)),
+                               ("gate", gate, (b, t, num_heads))):
+            if tuple(x.shape) != shape or x.dtype != torch.float32 or x.device != q.device:
+                raise ValueError(f"flash_attention_packed: {name} must be float32 {shape} on "
+                                 f"{q.device}, got {x.dtype} {tuple(x.shape)} {x.device}")
+            if not x.is_contiguous():
+                raise ValueError(f"flash_attention_packed: {name} must be contiguous")
+        bias_ptrs = (position_bias.data_ptr(), gate.data_ptr())
 
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _library().fadtk_flash_attention_packed(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), nv.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), nv.data_ptr(), *bias_ptrs, out.data_ptr(),
         b, t, num_heads, _DTYPE_CODE[q.dtype], stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention_packed: kernel launch failed, cudaError {rc}")
-    flash_attention_packed.launches += 1
+    if position_bias is None:
+        flash_attention_packed.launches += 1
+    else:
+        flash_attention_packed.bias_launches += 1
     return out
 
 
-# Kernel launches since the last reset (``chip_smoke.py`` zeroes it and
-# reads it around the main path to show the path went through the kernel).
+# Kernel launches since the last reset, by form: ``launches`` counts the
+# no-bias kernel, ``bias_launches`` the factorized-bias one (``chip_smoke.py``
+# zeroes both and reads them around the main path to show the path went
+# through the kernels).
 flash_attention_packed.launches = 0
+flash_attention_packed.bias_launches = 0

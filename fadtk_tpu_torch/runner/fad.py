@@ -42,14 +42,15 @@ def atomic_save_npy(path: Path, array: np.ndarray) -> None:
 
 def _shipped_stats_dirs() -> list[Path]:
     """Directories of packaged baseline statistics (.npz): ``FADTK_TPU_BASELINES``
-    (os.pathsep-separated) first, then the JAX package's ``baselines/`` (the
-    key format '{model}.mu'/'{model}.cov' is shared, fadtk/package.py:34-42)."""
+    (os.pathsep-separated) first, then the port's own ``baselines/`` (the key
+    format '{model}.mu'/'{model}.cov' is the JAX package's,
+    fadtk/package.py:34-42, so its files can be copied or named there)."""
     dirs = [
         Path(d)
         for d in os.environ.get("FADTK_TPU_BASELINES", "").split(os.pathsep)
         if d
     ]
-    dirs.append(Path(__file__).resolve().parents[2] / "fadtk_tpu" / "baselines")
+    dirs.append(Path(__file__).resolve().parents[1] / "baselines")
     return dirs
 
 
