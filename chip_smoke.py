@@ -11,27 +11,44 @@ failed check, on a machine without a usable card, or outside a checkout.
 Phases:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. kernel build (nvcc, sm_90a), timed;
+2. kernel build (nvcc, sm_90a): one nvcc per kernel source, all started
+   together, timed;
 3. every kernel against its plain twin on the card, at the main paths'
-   shapes, ragged n_valid, with CUDA-event times of kernel, twin and one
-   PyTorch library call for the same function (a yardstick the port never
+   shapes, with CUDA-event times of kernel and twin, one PyTorch library call
+   for the same function where there is one (a yardstick the port never
    calls), and the roofline bound of the run's work:
    - K1, flash attention without bias: the w2v2/HuBERT 16 kHz bucket
-     B=16/T=499/H=12 in bf16 and f32, MERT's 24 kHz bucket T=749 in bf16;
+     B=16/T=499/H=12 in bf16 and f32, MERT's 24 kHz bucket T=749 in bf16,
+     ragged n_valid;
    - K1b, the same kernel with WavLM's factorized gated bias: B=16/T=499 in
      bf16 and f32 at H=12 (wavlm-base-plus) and bf16 at H=16 (wavlm-large);
+   - K4, the fused SEANet residual block: the four call sites of one
+     encodec-emb forward of 10 s clips at B=16 (C/T = 32/240000, 64/120000,
+     128/30000, 256/6000, none a multiple of the kernel's tile) in f32 and
+     bf16, plus small ragged cases (T = 1001 and the minimum T = 3); no
+     single library call computes it;
 4. full-width forwards (random weights from a seed) of w2v2-base,
    wavlm-base-plus and MERT-v1-95M (24 kHz, T=749): f32 on the card against
    f32 on the CPU, same weights, one 10 s clip; then batch-16 forward times
    for each (f32, bf16, bf16 with plain attention) and the device time by
    kernel from torch.profiler;
-5. the main paths through the CLI (``fadtk_tpu_torch.cli.main.main``) on two
+5. the codec families through their model classes, f32 on the card against
+   f32 on the CPU, same weights: encodec-emb on one 10 s clip with the fused
+   block's knob (FADTK_TPU_FUSED_RESNET) on and off, encodec-emb-48k on a
+   2.5 s stereo clip (two 1 s segments and a tail), dac-44kHz on one 5 s
+   window; then batch-16 10 s forwards of encodec-emb in f32 and bf16, each
+   with the knob off and on (the A/B), and dac-44kHz forwards of 8 windows in
+   f32 and bf16, with the device time by kernel and the idle share;
+6. the main paths through the CLI (``fadtk_tpu_torch.cli.main.main``) on two
    generated datasets of 16 WAV clips each (full 10 s and ragged 2-9 s clips,
    some at 44.1 kHz so the host resampler runs): w2v2-base and
    wavlm-base-plus in f32 and ``--bf16``, MERT-v1-95M ``--bf16`` (resampled to
-   24 kHz). Both kernel launch counts are set to 0 just before each run and
-   read just after it;
-6. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+   24 kHz), encodec-emb in f32 and ``--bf16`` with the knob on,
+   encodec-emb-48k ``--bf16`` and dac-44kHz ``--bf16``. Every kernel launch
+   count is set to 0 just before each run and read just after it: K1/K1b
+   must launch 12 times per speech device batch, K4 4 times per encodec-emb
+   forward, and no kernel elsewhere;
+7. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -57,6 +74,16 @@ HEAD_DIM, BATCH = 64, 16
 # only by the online softmax's reordered sums.
 ATOL = {"bfloat16": 2e-2, "float32": 1e-5}
 RTOL_CARD_VS_CPU = 1e-3
+# K4 vs its plain twin, |kernel - twin| <= tol + tol·|twin| (the JAX package's
+# tests/test_fused_resnet.py bounds): float32 differs only by the order of the
+# tap and channel sums (FMA chains, TF32 off in the twin's cuDNN convs); in
+# bf16 the kernel and the twin round the same products to bf16, but cuDNN's
+# tensor-core sums land on the other side of a rounding boundary now and
+# then, one bf16 ulp (2^-8 relative) that moves through the next product.
+K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# The four K4 call sites of one encodec-emb forward of 10 s clips (24 kHz):
+# (C, T) after each downsampling stage; 4 launches per forward.
+K4_SHAPES = [(32, 240000), (64, 120000), (128, 30000), (256, 6000)]
 # Roofline of one H100 SXM (NVIDIA data sheet; dense, at 700 W): memory rate
 # and peak rates by input type (bf16 on tensor cores, f32 on CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
@@ -83,6 +110,15 @@ def cuda_ms(torch, fn, runs: int = 25) -> float:
     return statistics.median(times)
 
 
+def _roofline(flops: float, nbytes: float, dtype: str) -> dict:
+    """The larger of the bytes over the memory rate and the operations over the
+    peak rate for the input type, in ms, and which of the two it is."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def attention_bound(nv: list[int], t: int, heads: int, dtype: str, bias: bool) -> dict:
     """The least time the card could take for this call's work: the larger of
     the bytes it must move over the memory rate and its operations over the
@@ -100,11 +136,7 @@ def attention_bound(nv: list[int], t: int, heads: int, dtype: str, bias: bool) -
     nbytes = 3 * rows * hd * item + len(nv) * t * hd * item + 4 * len(nv)
     if bias:
         nbytes += 4 * heads * max(nv) ** 2 + 4 * rows * heads
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+    return {**_roofline(flops, nbytes, dtype), "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
 
 
 def check_kernel(torch, fa, dtype, t: int, heads: int, bias: bool) -> dict:
@@ -176,6 +208,85 @@ def check_kernel(torch, fa, dtype, t: int, heads: int, bias: bool) -> dict:
             "library_ms": library_ms}
 
 
+def resnet_bound(b: int, c: int, t: int, dtype: str) -> dict:
+    """The least time the card could take for one fused residual block over
+    (b, c, t): 6·C² FLOP per column (3·C² for the k=3 conv, C² for the k=1
+    conv, 2·C² for the shortcut) over B·T columns at the peak rate for the
+    input type, against x read once and out written once (2·B·C·T items)
+    plus the weights and biases (3·C² + 2.5·C items) read once."""
+    item = 2 if dtype == "bfloat16" else 4
+    flops = 6 * c * c * t * b
+    nbytes = (2 * b * c * t + 3 * c * c + 5 * c // 2) * item
+    return {"flops": flops, "bytes": nbytes, **_roofline(flops, nbytes, dtype)}
+
+
+def check_resnet(torch, fr, dtype, c: int, t: int, b: int = BATCH, timed: bool = True) -> dict:
+    """K4 vs its twin on (b, c, t): x ~ N(0, 0.5²); weights U(±1/√fan_in) as
+    the model's random init makes them, biases U(±0.1). With ``timed``, the
+    CUDA-event times of kernel and twin (the unfused cuDNN chain)."""
+    dev = torch.device("cuda")
+    name = str(dtype).split(".")[-1]
+    g = torch.Generator(device=dev).manual_seed(SEED + c + t)
+    x = (torch.randn((b, c, t), generator=g, device=dev) * 0.5).to(dtype)
+
+    def u(shape, s):
+        return ((torch.rand(shape, generator=g, device=dev) * 2 - 1) * s).to(dtype)
+
+    ch = c // 2
+    w = (u((ch, c, 3), (3 * c) ** -0.5), u((ch,), 0.1), u((c, ch), ch ** -0.5), u((c,), 0.1),
+         u((c, c), c ** -0.5), u((c,), 0.1))
+    out = fr.fused_resnet_causal(x, *w)
+    ref = fr.fused_resnet_causal_reference(x, *w)
+    torch.cuda.synchronize()
+    label = f"K4 {name} B={b} C={c} T={t}"
+    if out.shape != x.shape or out.dtype != x.dtype or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"{label}: {out.dtype} {tuple(out.shape)} or non-finite values")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    tol = K4_TOL[name]
+    over = (diff > tol + tol * ref.float().abs()).sum().item()
+    del diff, out
+    result = {"max_abs_err": err, "max_ref": ref.float().abs().max().item()}
+    del ref
+    line = (f"{label}: max_abs_err={err:.3e} (max|twin| {result['max_ref']:.3f}; "
+            f"atol=rtol={tol:g}, {over} over)")
+    if timed:
+        ms = cuda_ms(torch, lambda: fr.fused_resnet_causal(x, *w))
+        plain_ms = cuda_ms(torch, lambda: fr.fused_resnet_causal_reference(x, *w))
+        bound = resnet_bound(b, c, t, name)
+        result.update(ms=ms, plain_ms=plain_ms, **bound)
+        line += (f"; kernel={ms:.4f} ms plain={plain_ms:.4f} ms (no single library call); "
+                 f"bound {bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']} "
+                 f"({bound['flops'] / 1e9:.3f} GFLOP, {bound['bytes'] / 1e6:.2f} MB)")
+    print(line, flush=True)
+    if over:
+        raise AssertionError(f"{label}: {over} values beyond the tolerance, max_abs_err {err}")
+    return result
+
+
+def k4_path_checks(torch, fr) -> dict:
+    """K4 at the four call sites in f32 and bf16, and the ragged cases.
+    Returns the kernels-line entry for one forward's four launches in f32:
+    the summed kernel and twin times, the bound of the summed work, the
+    largest error."""
+    torch.backends.cudnn.allow_tf32 = False  # the f32 twin's convs stay f32
+    per = {name: [check_resnet(torch, fr, dtype, c, t) for c, t in K4_SHAPES]
+           for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
+    for dtype in (torch.float32, torch.bfloat16):
+        check_resnet(torch, fr, dtype, 64, 1001, b=3, timed=False)
+        check_resnet(torch, fr, dtype, 32, 3, b=2, timed=False)
+    summed = {}
+    for name, rows in per.items():
+        summed[name] = {
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            **_roofline(sum(r["flops"] for r in rows), sum(r["bytes"] for r in rows), name),
+            "library_ms": None,
+        }
+        print(f"K4 {name}, the four launches of one batch-16 forward: {summed[name]}", flush=True)
+    return summed["float32"]
+
+
 def card_vs_cpu(torch, model_name: str):
     """Full-width f32 forward of ``model_name``'s encoder on the card vs the
     CPU, same weights, one 10 s clip. Returns the card model."""
@@ -226,8 +337,6 @@ def forward_breakdown(torch, m32, model_name: str, sr: int) -> None:
     the libraries before the timed CLI runs."""
     import copy
 
-    from torch.profiler import ProfilerActivity, profile
-
     from fadtk_tpu_torch.models.speech.encoder import speech_encoder_forward
 
     m16 = copy.deepcopy(m32).to(torch.bfloat16)
@@ -253,24 +362,93 @@ def forward_breakdown(torch, m32, model_name: str, sr: int) -> None:
     os.environ.pop("FADTK_TPU_FLASH_ATTENTION")
 
     for name, model in (("f32", m32), ("bf16", m16)):
+        profile_forward(torch, f"{model_name} {name}", lambda: forward(model))
+
+
+def profile_forward(torch, label: str, forward) -> None:
+    """One forward under torch.profiler: wall time, device kernel time, idle
+    share and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forward()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            forward(model)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3
-        busy = sum(kernels.values())
-        if not busy:
-            print(f"[{model_name} {name}] device time by kernel: not measured (no device events)")
-            continue
-        print(f"[{model_name} {name}] one forward: wall {wall_ms:.2f} ms, device kernels "
-              f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}; top kernels:", flush=True)
-        for k, t in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"  {t:8.3f} ms {100 * t / busy:5.1f}%  {k[:100]}", flush=True)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy = sum(kernels.values())
+    if not busy:
+        print(f"[{label}] device time by kernel: not measured (no device events)")
+        return
+    print(f"[{label}] one forward: wall {wall_ms:.2f} ms, device kernels "
+          f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}; top kernels:", flush=True)
+    for k, t in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {t:8.3f} ms {100 * t / busy:5.1f}%  {k[:100]}", flush=True)
+
+
+def codec_card_vs_cpu(torch, model_name: str, audio, knobs=("",)):
+    """``model_name``'s ``_embed`` (its own windowing or segmenting) in f32 on
+    the card vs the CPU, random weights from seed 0 in both, once for each
+    value of FADTK_TPU_FUSED_RESNET in ``knobs``. Returns the card model."""
+    from fadtk_tpu_torch.models.registry import get_model
+
+    models = {}
+    for dev in ("cpu", "cuda"):
+        os.environ["FADTK_TPU_TORCH_DEVICE"] = dev
+        models[dev] = get_model(model_name)
+        models[dev].ensure_loaded()
+    os.environ.pop("FADTK_TPU_TORCH_DEVICE")
+    t0 = time.perf_counter()
+    want = models["cpu"]._embed(audio)
+    cpu_s = time.perf_counter() - t0
+    scale = float(abs(want).max())
+    for knob in knobs:
+        os.environ["FADTK_TPU_FUSED_RESNET"] = knob
+        got = models["cuda"]._embed(audio)
+        os.environ.pop("FADTK_TPU_FUSED_RESNET")
+        if got.shape != want.shape or not (abs(got) < float("inf")).all():
+            raise AssertionError(f"{model_name}: card {got.shape} vs cpu {want.shape}, "
+                                 "or non-finite values")
+        diff = float(abs(got - want).max())
+        print(f"{model_name} f32 card vs cpu, audio {tuple(audio.shape)}, "
+              f"FADTK_TPU_FUSED_RESNET={knob!r}: {got.shape[0]} frames x {got.shape[1]}: "
+              f"max_abs_diff={diff:.3e} max|cpu|={scale:.3e} relative={diff / scale:.3e} "
+              f"(limit {RTOL_CARD_VS_CPU:g}); cpu {cpu_s:.2f} s", flush=True)
+        if not diff <= RTOL_CARD_VS_CPU * scale:
+            raise AssertionError(f"{model_name}: card vs cpu relative diff {diff / scale}")
+    return models["cuda"]
+
+
+def codec_forward_breakdown(torch, model, forward, shape: tuple, audio_s: float, unit: str,
+                            knobs=("",)) -> None:
+    """Forwards of ``model``'s module on a random (B, channels, T) batch in f32
+    and bf16, each with every knob value: median CUDA-event time, then one
+    profiled forward each."""
+    import copy
+
+    m32 = model.module
+    m16 = copy.deepcopy(m32).to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    audio = torch.randn(shape, generator=g, device="cuda") * 0.1
+
+    def run(module):
+        with torch.inference_mode():
+            return forward(module, audio)
+
+    for name, module in (("f32", m32), ("bf16", m16)):
+        for knob in knobs:
+            os.environ["FADTK_TPU_FUSED_RESNET"] = knob
+            label = f"{model.name} {name} B={shape[0]}" + (f" fused={knob}" if knob else "")
+            ms = cuda_ms(torch, lambda: run(module), runs=10)
+            print(f"{label}: forward {ms:.3f} ms = {audio_s / ms * 1e3:.1f} {unit}/s "
+                  f"({audio_s:g} {unit} per batch)", flush=True)
+            profile_forward(torch, label, lambda: run(module))
+            os.environ.pop("FADTK_TPU_FUSED_RESNET")
+    del m16
 
 
 def make_dataset(root: Path, name: str, seed: int) -> float:
@@ -295,24 +473,52 @@ def make_dataset(root: Path, name: str, seed: int) -> float:
     return total
 
 
-def cli_run(torch, fa, work: Path, seconds: float, model_name: str, bf16: bool) -> dict:
-    """One CLI run over the two datasets; checks the CSV row and the
-    embedding caches. Returns the kernel launch counts by form (set to 0
-    just before the run, read just after it) and the number of device
-    batches the run made."""
+def path_shape(model, lengths: list[int]) -> tuple[list[int], int]:
+    """Frames of each clip's embedding and the device forwards that one
+    ``embed_batch`` call over a dataset's clips (converted lengths in
+    samples) makes, by family: the speech bucketing, encodec-emb's groups of
+    one exact length (64 to a forward, 320-sample hop), encodec-emb-48k's
+    full 1 s segments (150 frames each) and tail, dac-44kHz's 5 s windows at
+    50 % overlap (430 frames each, 8 to a forward)."""
+    from collections import Counter
+
+    from fadtk_tpu_torch.utils import next_multiple
+
+    if model.name == "encodec-emb":
+        groups = Counter(lengths).values()
+        return ([-(-n // 320) for n in lengths],
+                sum(-(-c // model.GROUP_BATCH) for c in groups))
+    if model.name == "encodec-emb-48k":
+        frames = [(n // 48000) * 150 + -(-(n % 48000) // 320) for n in lengths]
+        return frames, sum((n >= 48000) + (n % 48000 > 0) for n in lengths)
+    if model.name == "dac-44kHz":
+        windows = [2 * max(1, -(-n // 220500)) - 1 for n in lengths]
+        return [w * 430 for w in windows], -(-sum(windows) // model.WINDOW_BATCH)
+    bucket = 10 * model.sr
+    buckets = Counter(next_multiple(max(n, 1), bucket) for n in lengths).values()
+    return ([model.cfg.num_output_frames(n) for n in lengths],
+            sum(-(-c // model.MAX_BATCH) for c in buckets))
+
+
+def cli_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: bool,
+            env: dict | None = None) -> dict:
+    """One CLI run over the two datasets with ``env`` set for the run only;
+    checks the CSV row and the embedding caches. Returns the kernel launch
+    counts (set to 0 just before the run, read just after it) and the number
+    of device forwards the run made."""
     import numpy as np
 
     from fadtk_tpu_torch.audio.wavio import read_wav_int16
     from fadtk_tpu_torch.cli import main as cli
     from fadtk_tpu_torch.models.registry import get_model
     from fadtk_tpu_torch.runner import profiling
-    from fadtk_tpu_torch.utils import next_multiple
 
     model = get_model(model_name)
     key = model_name + ("-bf16" if bf16 else "")
     csv = work / f"scores-{key}.csv"
     reports: list[dict] = []
     real_report = profiling.report
+    fa, fr = kernels
 
     def capture(reset: bool = True):
         reports.append(real_report(reset))
@@ -321,18 +527,23 @@ def cli_run(torch, fa, work: Path, seconds: float, model_name: str, bf16: bool) 
     profiling.report = capture
     sys.argv = ["fadtk", model_name, str(work / "baseline"), str(work / "eval"), str(csv),
                 *(["--bf16"] if bf16 else [])]
+    os.environ.update(env or {})
     try:
         fa.flash_attention_packed.launches = 0
         fa.flash_attention_packed.bias_launches = 0
+        fr.fused_resnet_causal.launches = 0
         cli.main()
         torch.cuda.synchronize()
         launches = {"K1": fa.flash_attention_packed.launches,
-                    "K1b": fa.flash_attention_packed.bias_launches}
+                    "K1b": fa.flash_attention_packed.bias_launches,
+                    "K4": fr.fused_resnet_causal.launches}
     finally:
         profiling.report = real_report
         os.environ.pop("FADTK_TPU_BF16", None)
+        for k in env or {}:
+            os.environ.pop(k)
     embed_s = sum(r.get("embed", 0.0) for r in reports)
-    print(f"[{key}] profile per dataset: {reports}", flush=True)
+    print(f"[{key}] {env or ''} profile per dataset: {reports}", flush=True)
     print(f"[{key}] embed stage: {seconds:.1f} audio-s in {embed_s:.3f} s = "
           f"{seconds / embed_s:.1f} audio-s/s; kernel launches {launches}", flush=True)
 
@@ -345,52 +556,50 @@ def cli_run(torch, fa, work: Path, seconds: float, model_name: str, bf16: bool) 
     if fields[0] != key or not math.isfinite(score):
         raise AssertionError(f"bad CSV row {rows[1]!r}")
 
-    frames, bucket = model.cfg.num_output_frames, 10 * model.sr
-    n_batches = 0
+    n_forwards = 0
     for ds in ("baseline", "eval"):
         embs = sorted((work / ds / "embeddings" / key).glob("*.npy"))
         if len(embs) != 16:
             raise AssertionError(f"{ds}/{key}: {len(embs)} embedding files")
-        buckets: dict[int, int] = {}
-        for f in embs:
+        lengths = [read_wav_int16(work / ds / "convert" / str(model.sr) /
+                                  f.with_suffix(".wav").name)[0].shape[0] for f in embs]
+        frames, forwards = path_shape(model, lengths)
+        n_forwards += forwards
+        for f, n_frames in zip(embs, frames):
             e = np.load(f)
-            wav = work / ds / "convert" / str(model.sr) / f.with_suffix(".wav").name
-            n = read_wav_int16(wav)[0].shape[0]
-            b = next_multiple(max(n, 1), bucket)
-            buckets[b] = buckets.get(b, 0) + 1
-            want = (frames(n), model.num_features)
+            want = (n_frames, model.num_features)
             if e.dtype != np.float16 or e.shape != want or not np.isfinite(e).all():
                 raise AssertionError(f"{f}: {e.dtype} {e.shape}, expected float16 {want}")
-        n_batches += sum(-(-c // model.MAX_BATCH) for c in buckets.values())
         for stat in ("mu.npy", "cov.npy"):
             if not (work / ds / "stats" / key / stat).exists():
                 raise AssertionError(f"{ds}/stats/{key}/{stat} missing")
-    return {**launches, "batches": n_batches}
+    return {**launches, "forwards": n_forwards}
 
 
-def cli_runs(torch, fa) -> dict:
+def cli_runs(torch, kernels, work: Path) -> dict:
     """Every main path through the CLI, on two generated datasets. Returns
     the launches of each kernel summed over the runs that must launch it."""
-    work = Path(tempfile.mkdtemp(prefix="fadtk_tpu_torch_smoke_"))
-    os.environ["FADTK_TPU_RANDOM_WEIGHTS"] = "1"
-    os.environ["FADTK_TPU_CHECKPOINTS"] = str(work / "checkpoints")
     os.environ.pop("FADTK_TPU_BF16", None)
     os.environ.pop("FADTK_TPU_FLASH_F32", None)
     seconds = make_dataset(work, "baseline", SEED + 1) + make_dataset(work, "eval", SEED + 2)
 
-    # (model, bf16, kernel that must launch 12 times per device batch or None)
-    runs = [("w2v2-base", False, None), ("w2v2-base", True, "K1"),
-            ("wavlm-base-plus", False, None), ("wavlm-base-plus", True, "K1b"),
-            ("MERT-v1-95M", True, "K1")]
-    totals = {"K1": 0, "K1b": 0}
-    for model_name, bf16, kernel in runs:
-        got = cli_run(torch, fa, work, seconds, model_name, bf16)
-        want = {"K1": 0, "K1b": 0}
+    fused = {"FADTK_TPU_FUSED_RESNET": "1"}
+    # (model, bf16, env for the run, kernel that must launch and how often
+    # per device forward, or None)
+    runs = [("w2v2-base", False, None, None), ("w2v2-base", True, None, ("K1", 12)),
+            ("wavlm-base-plus", False, None, None), ("wavlm-base-plus", True, None, ("K1b", 12)),
+            ("MERT-v1-95M", True, None, ("K1", 12)),
+            ("encodec-emb", False, fused, ("K4", 4)), ("encodec-emb", True, fused, ("K4", 4)),
+            ("encodec-emb-48k", True, None, None), ("dac-44kHz", True, None, None)]
+    totals = {"K1": 0, "K1b": 0, "K4": 0}
+    for model_name, bf16, env, kernel in runs:
+        got = cli_run(torch, kernels, work, seconds, model_name, bf16, env)
+        want = {"K1": 0, "K1b": 0, "K4": 0}
         if kernel:
-            want[kernel] = 12 * got["batches"]
+            want[kernel[0]] = kernel[1] * got["forwards"]
         if {k: got[k] for k in want} != want:
             raise AssertionError(f"{model_name} bf16={bf16}: launches {got}, expected {want} "
-                                 f"({got['batches']} device batches)")
+                                 f"({got['forwards']} device forwards)")
         for k in totals:
             totals[k] += got[k]
     return totals
@@ -423,14 +632,20 @@ def main() -> int:
               f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}", flush=True)
 
         phase("kernel build")
+        from concurrent.futures import ThreadPoolExecutor
+
         from fadtk_tpu_torch.ops import flash_attention as fa
+        from fadtk_tpu_torch.ops import fused_resnet as fr
 
         t0 = time.perf_counter()
-        lib = fa.library_path()
-        print(f"built {lib.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s", flush=True)
-        log = lib.with_suffix(".log")
-        if log.exists():
-            print(log.read_text().strip(), flush=True)
+        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+            libs = list(pool.map(lambda m: m.library_path(), (fa, fr)))
+        print(f"built {', '.join(str(lib.relative_to(REPO)) for lib in libs)} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for lib in libs:
+            log = lib.with_suffix(".log")
+            if log.exists():
+                print(log.read_text().strip(), flush=True)
 
         phase("kernels vs plain twins")
         k1 = check_kernel(torch, fa, torch.bfloat16, 499, 12, bias=False)
@@ -439,6 +654,7 @@ def main() -> int:
         k1b = check_kernel(torch, fa, torch.bfloat16, 499, 12, bias=True)
         check_kernel(torch, fa, torch.float32, 499, 12, bias=True)
         check_kernel(torch, fa, torch.bfloat16, 499, 16, bias=True)
+        k4 = k4_path_checks(torch, fr)
         torch.cuda.empty_cache()
 
         for model_name in ("w2v2-base", "wavlm-base-plus", "MERT-v1-95M"):
@@ -449,8 +665,37 @@ def main() -> int:
             del m32
             torch.cuda.empty_cache()
 
-        phase("main paths: CLI w2v2-base and wavlm-base-plus f32 and --bf16, MERT --bf16")
-        launches = cli_runs(torch, fa)
+        import numpy as np
+
+        from fadtk_tpu_torch.models.dac_impl import dac_encode
+        from fadtk_tpu_torch.models.encodec_impl import encodec_encode
+
+        work = Path(tempfile.mkdtemp(prefix="fadtk_tpu_torch_smoke_"))
+        os.environ["FADTK_TPU_RANDOM_WEIGHTS"] = "1"
+        os.environ["FADTK_TPU_CHECKPOINTS"] = str(work / "checkpoints")
+        os.environ.pop("FADTK_TPU_BF16", None)
+        rng = np.random.default_rng(SEED)
+        phase("encodec-emb f32: card vs cpu, fused block off and on")
+        enc24 = codec_card_vs_cpu(torch, "encodec-emb",
+                                  (rng.standard_normal((1, 240000)) * 0.1).astype(np.float32),
+                                  knobs=("0", "1"))
+        phase("encodec-emb forward, batch 16 x 10 s: fused block off and on")
+        codec_forward_breakdown(torch, enc24, encodec_encode, (BATCH, 1, 240000), BATCH * 10.0,
+                                "audio-s", knobs=("0", "1"))
+        del enc24
+        phase("encodec-emb-48k f32: card vs cpu, 2.5 s stereo")
+        codec_card_vs_cpu(torch, "encodec-emb-48k",
+                          (rng.standard_normal((2, 120000)) * 0.1).astype(np.float32))
+        phase("dac-44kHz f32: card vs cpu, one 5 s window")
+        dac = codec_card_vs_cpu(torch, "dac-44kHz", rng.standard_normal(220500) * 0.1)
+        phase("dac-44kHz forward, batch of 8 windows")
+        codec_forward_breakdown(torch, dac, dac_encode, (8, 1, 220500), 8 * 5.0, "window-s")
+        del dac
+        torch.cuda.empty_cache()
+
+        phase("main paths: CLI w2v2-base, wavlm-base-plus, encodec-emb f32 and --bf16; "
+              "MERT, encodec-emb-48k, dac-44kHz --bf16")
+        launches = cli_runs(torch, (fa, fr), work)
 
         if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
             raise AssertionError("jax was imported")
@@ -464,6 +709,10 @@ def main() -> int:
              "source": source,
              "replaces": "fadtk_tpu/ops/flash_attention.py:703 (bias term :559-562)",
              "launches": launches["K1b"], **k1b},
+            {"name": "fused_resnet_causal (f32, one forward's four launches)", "route": "cuda",
+             "source": "fadtk_tpu_torch/csrc/fused_resnet_causal.cu",
+             "replaces": "fadtk_tpu/ops/fused_resnet.py:125",
+             "launches": launches["K4"], **k4},
         ]}))
     except Exception:
         traceback.print_exc()

@@ -138,5 +138,39 @@ class EmbeddingModel(ABC):
         """Embed several clips; subclasses override with batched device code."""
         return [self.get_embedding(c) for c in clips]
 
+    @staticmethod
+    def _batch_chunked(
+        per_file_chunks: list[np.ndarray],
+        forward,
+        batch_size: int = 32,
+    ) -> list[np.ndarray]:
+        """Cross-file batching helper for fixed-window ("chunked") models.
+
+        per_file_chunks: one (n_chunks_i, *chunk_shape) array per file — all
+        chunk shapes equal. Chunks from all files concatenate into device
+        batches of ``batch_size`` (the last one zero-padded to the full size,
+        the padded rows dropped), then split back per file. Chunk-level
+        results are independent per sample, so batching is exact.
+        """
+        counts = [c.shape[0] for c in per_file_chunks]
+        flat = np.concatenate(per_file_chunks, axis=0)
+        total = flat.shape[0]
+        if total == 0:
+            return [c[:0] for c in per_file_chunks]
+        outs = []
+        for start in range(0, total, batch_size):
+            group = flat[start : start + batch_size]
+            pad = batch_size - group.shape[0]
+            if pad:
+                group = np.concatenate([group, np.zeros((pad, *group.shape[1:]), group.dtype)])
+            out = np.asarray(forward(group))
+            outs.append(out[: out.shape[0] - pad] if pad else out)
+        merged = np.concatenate(outs, axis=0)
+        results, pos = [], 0
+        for n in counts:
+            results.append(merged[pos : pos + n])
+            pos += n
+        return results
+
     def __repr__(self) -> str:
         return f"<{type(self).__name__} {self.name} d={self.num_features} sr={self.sr}>"

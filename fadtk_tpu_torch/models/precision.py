@@ -7,8 +7,10 @@ cores, attention takes the hand-written flash kernel
 is the JAX package's (``fadtk_tpu/models/precision.py``), kept so the port's
 bf16 embeddings stay close to its:
 
-- norm statistics (LayerNorm, the masked GroupNorm's sums), attention logits
-  and softmax stay float32;
+- norm statistics (LayerNorm, the masked GroupNorm's sums, EnCodec 48k's
+  one-pass time group norm moments), attention logits and softmax stay
+  float32; the codec families' ELU, snake (``torch.sin``) and LSTM simply
+  run in the weights' dtype, as in the JAX package;
 - opt-in only: env ``FADTK_TPU_BF16=1`` or the ``--bf16`` CLI flag;
 - bf16 embeddings differ slightly from the float32 reference-parity values, so
   caches and stats segregate under ``<model>-bf16`` names

@@ -1,13 +1,14 @@
 """Model registry: the variants ported so far, built lazily.
 
 ``fadtk_tpu.models.registry`` registers every variant the reference does
-(fadtk/model_loader.py:676-701). The port registers the speech-encoder
-families, in the JAX package's order:
+(fadtk/model_loader.py:676-701). The port registers the speech-encoder and
+codec families, in the JAX package's order:
 
-    MERT-v1-95M[-1..11] (12 = default name);
+    MERT-v1-95M[-1..11] (12 = default name); encodec-emb, encodec-emb-48k;
     w2v2-base[-1..11], w2v2-large[-1..23] (24 = default);
     hubert-base[-..], hubert-large[-..];
-    wavlm-base[-..], wavlm-base-plus[-..], wavlm-large[-..].
+    wavlm-base[-..], wavlm-base-plus[-..], wavlm-large[-..];
+    dac-44kHz.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from .base import EmbeddingModel
 
 
 def _builders() -> list[Callable[[], EmbeddingModel]]:
+    from .dac import DACModel
+    from .encodec import EncodecEmbModel
     from .hubert import HuBERTModel
     from .mert import MERTModel
     from .wav2vec2 import W2V2Model
@@ -25,6 +28,7 @@ def _builders() -> list[Callable[[], EmbeddingModel]]:
 
     builders: list[Callable[[], EmbeddingModel]] = []
     builders += [lambda v=v: MERTModel(layer=v) for v in range(1, 13)]
+    builders += [lambda: EncodecEmbModel("24k"), lambda: EncodecEmbModel("48k")]
     builders += [lambda v=v: W2V2Model("base", layer=v) for v in range(1, 13)]
     builders += [lambda v=v: W2V2Model("large", layer=v) for v in range(1, 25)]
     builders += [lambda v=v: HuBERTModel("base", layer=v) for v in range(1, 13)]
@@ -32,6 +36,7 @@ def _builders() -> list[Callable[[], EmbeddingModel]]:
     builders += [lambda v=v: WavLMModel("base", layer=v) for v in range(1, 13)]
     builders += [lambda v=v: WavLMModel("base-plus", layer=v) for v in range(1, 13)]
     builders += [lambda v=v: WavLMModel("large", layer=v) for v in range(1, 25)]
+    builders += [lambda: DACModel()]
     return builders
 
 

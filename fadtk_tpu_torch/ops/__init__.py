@@ -5,9 +5,17 @@ from .flash_attention import (
     flash_attention_packed,
     flash_attention_packed_reference,
 )
+from .fused_resnet import (
+    fused_resnet_causal,
+    fused_resnet_causal_reference,
+    fused_resnet_enabled,
+)
 
 __all__ = [
     "flash_attention_enabled",
     "flash_attention_packed",
     "flash_attention_packed_reference",
+    "fused_resnet_causal",
+    "fused_resnet_causal_reference",
+    "fused_resnet_enabled",
 ]

@@ -19,37 +19,26 @@ Routing is by the tensor's device, and only by it:
   (same signature, keys masked at ``n_valid``, every row finite);
 - CUDA tensors launch the kernel, or raise. There is no fallback.
 
-The kernel is built at first use from the source in the repository with
-``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
-plain C entry point, loaded with ctypes. The library lands in
-``build/fadtk_tpu_torch/`` under a name keyed on a hash of the source and the
-flags, so an edit rebuilds.
+The kernel is built at first use from the source in the repository into a
+shared library with a plain C entry point (``ops/build.py``), loaded with
+ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
-from ..utils import log
+from . import build
 
 HEAD_DIM = 64
 _NEG = -0.7 * torch.finfo(torch.float32).max  # finite "-inf" (NaN-safe)
 
-_REPO = Path(__file__).resolve().parents[2]
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_packed.cu"
-BUILD_DIR = _REPO / "build" / "fadtk_tpu_torch"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+_SOURCE = build.CSRC / "flash_attention_packed.cu"
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,33 +57,9 @@ def flash_attention_enabled(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
-    if not Path(found).exists():
-        raise RuntimeError(
-            "nvcc not found (PATH, $CUDA_HOME/bin): the flash-attention kernel "
-            f"is built from {_SOURCE} at first use on a CUDA machine"
-        )
-    return found
-
-
 def library_path() -> Path:
     """Build (if needed) the kernel library and return its path."""
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"libfadtk_flash_attention_packed-{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    log.info(f"building {out.name} with nvcc")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)  # ptxas -v report
-    os.replace(tmp, out)
-    return out
+    return build.library_path(_SOURCE)
 
 
 def _library() -> ctypes.CDLL:

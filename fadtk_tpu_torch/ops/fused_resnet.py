@@ -1,0 +1,149 @@
+"""Fused SEANet residual block (EnCodec 24 kHz): the hand-written Hopper kernel and its plain twin.
+
+``fused_resnet_causal`` is the port of
+``fadtk_tpu/ops/fused_resnet.py::fused_resnet_causal``, with its signature and
+layouts: x (B, C, T), w1 (C/2, C, 3), b1 (C/2,), w2 (C, C/2), b2 (C,),
+wsc (C, C), bsc (C,). It computes the 24 kHz encoder's residual block in one
+pass over x:
+
+    out = wsc·x + bsc + w2·elu(w1 ⊛ reflectpad₂(elu(x)) + b1) + b2
+
+where ``w1 ⊛`` is the causal k=3 conv with ``elu(x)`` reflected by two
+columns on the left. Products accumulate in float32; in bf16 each product is
+rounded to the input dtype before its bias is added, as in the Pallas kernel.
+The kernel is CUDA C++ for sm_90a (``fadtk_tpu_torch/csrc/fused_resnet_causal.cu``;
+its header says what bounds it and how it is laid out), built at first use
+(``ops/build.py``) and loaded with ctypes.
+
+Routing is by the tensor's device, and only by it:
+
+- CPU tensors go to ``fused_resnet_causal_reference``, the plain torch twin;
+- CUDA tensors launch the kernel (float32 or bf16, C in 32/64/128/256,
+  T >= 3, contiguous x), or raise. There is no fallback.
+
+The model takes this path only under ``FADTK_TPU_FUSED_RESNET`` (off by
+default, as in the JAX package; ``models/encodec_impl.py::_resnet_block``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+_SOURCE = build.CSRC / "fused_resnet_causal.cu"
+WIDTHS = (32, 64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+
+
+def fused_resnet_enabled() -> bool:
+    """Route the 24 kHz residual blocks through the fused kernel?
+    ``FADTK_TPU_FUSED_RESNET`` decides; default off, as in the JAX package."""
+    env = os.environ.get("FADTK_TPU_FUSED_RESNET")
+    if env is not None and env.strip():
+        from ..models.precision import _TRUTHY
+
+        return env.strip().lower() in _TRUTHY
+    return False
+
+
+def library_path() -> Path:
+    """Build (if needed) the kernel library and return its path."""
+    return build.library_path(_SOURCE)
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(library_path()))
+            fn = lib.fadtk_fused_resnet_causal
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            _LIB = lib
+        return _LIB
+
+
+def fused_resnet_causal_reference(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    wsc: torch.Tensor,
+    bsc: torch.Tensor,
+) -> torch.Tensor:
+    """Plain torch twin: ELU, reflect-pad 2 on the left, the k=3 conv, ELU,
+    the k=1 conv, and the k=1 shortcut plus the sum. Each conv output is
+    taken in the input dtype before its bias is added, where the kernel
+    rounds."""
+    e = F.pad(F.elu(x), (2, 0), mode="reflect")
+    h = F.elu(F.conv1d(e, w1) + b1[:, None])
+    z = F.conv1d(h, w2[:, :, None]) + b2[:, None]
+    sc = F.conv1d(x, wsc[:, :, None]) + bsc[:, None]
+    return sc + z
+
+
+def fused_resnet_causal(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    wsc: torch.Tensor,
+    bsc: torch.Tensor,
+) -> torch.Tensor:
+    """The causal-reflect SEANet residual block, (B, C, T) -> (B, C, T).
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel or raise.
+    """
+    if x.device.type == "cpu":
+        return fused_resnet_causal_reference(x, w1, b1, w2, b2, wsc, bsc)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_resnet_causal: unsupported device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"fused_resnet_causal: expected x (B, C, T), got {tuple(x.shape)}")
+    b, c, t = x.shape
+    ch = c // 2
+    if c not in WIDTHS:
+        raise ValueError(f"fused_resnet_causal: C={c}; the kernel takes C in {WIDTHS}")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"fused_resnet_causal: dtype {x.dtype} (bf16 or float32 only)")
+    if t < 3:
+        raise ValueError(f"fused_resnet_causal: T={t}; the reflect pad needs T >= 3")
+    if not x.is_contiguous():
+        raise ValueError("fused_resnet_causal: x must be contiguous")
+    for name, w, shape in (("w1", w1, (ch, c, 3)), ("b1", b1, (ch,)), ("w2", w2, (c, ch)),
+                           ("b2", b2, (c,)), ("wsc", wsc, (c, c)), ("bsc", bsc, (c,))):
+        if tuple(w.shape) != shape or w.dtype != x.dtype or w.device != x.device:
+            raise ValueError(f"fused_resnet_causal: {name} must be {x.dtype} {shape} on "
+                             f"{x.device}, got {w.dtype} {tuple(w.shape)} {w.device}")
+
+    # float32 weights with output channels contiguous (exact for bf16 weights)
+    w1t = w1.float().permute(1, 2, 0).contiguous()  # (C, 3, Ch)
+    w2t = w2.float().t().contiguous()  # (Ch, C)
+    wsct = wsc.float().t().contiguous()  # (C, C)
+    b1f, b2f, bscf = (v.float().contiguous() for v in (b1, b2, bsc))
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _library().fadtk_fused_resnet_causal(
+        x.data_ptr(), w1t.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
+        wsct.data_ptr(), bscf.data_ptr(), out.data_ptr(), b, c, t, _DTYPE_CODE[x.dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused_resnet_causal: kernel launch failed, cudaError {rc}")
+    fused_resnet_causal.launches += 1
+    return out
+
+
+# Kernel launches since the last reset (``chip_smoke.py`` zeroes it and reads it
+# around the main path to show the path went through the kernel).
+fused_resnet_causal.launches = 0

@@ -10,10 +10,17 @@ modules mirror the tree's names (``nn.ModuleDict`` / ``nn.ModuleList``), so the
 mapping is mechanical:
 
 - dense ``kernel`` (in, out)        -> ``weight`` (out, in)          (nn.Linear)
-- conv ``kernel`` "HIO" (K, C_in/g, C_out) -> ``weight`` (C_out, C_in/g, K)
-  (nn.Conv1d; grouped convs such as the positional conv keep their group
-  split, since both frameworks lay groups out contiguously along C_out)
+- conv ``kernel`` -> ``weight`` (C_out, C_in/g, K), from the layout the family
+  stores (``conv_layout``):
+  - "HIO" (K, C_in/g, C_out), the speech encoder's: transposed (grouped convs
+    such as the positional conv keep their group split, since both
+    frameworks lay groups out contiguously along C_out);
+  - "OIH" (C_out, C_in, K), the codec encoders' (EnCodec, DAC), which keep
+    PyTorch's order: unchanged;
 - norm ``scale``                     -> ``weight``
+- LSTM layer ``j``'s ``layers/{j}/w_ih|w_hh|b_ih|b_hh`` -> ``lstm.weight_ih_l{j}``,
+  ``weight_hh_l{j}``, ``bias_ih_l{j}``, ``bias_hh_l{j}`` (nn.LSTM; same gate
+  order i, f, g, o)
 - ``bias`` and everything else       -> unchanged
 """
 
@@ -60,7 +67,9 @@ def unflatten_pytree(flat: dict[str, np.ndarray]):
         if not isinstance(node, dict):
             return node
         keys = list(node.keys())
-        if keys and all(k.isdigit() for k in keys):
+        # Only 0..n-1 was a list: EnCodec's layers dict is keyed by HF layer
+        # index with gaps (no entry for the parameter-free ELUs).
+        if keys and set(keys) == {str(i) for i in range(len(keys))}:
             return [listify(node[str(i)]) for i in range(len(keys))]
         return {k: listify(v) for k, v in node.items()}
 
@@ -82,10 +91,17 @@ def decode_config_meta(meta) -> dict:
     return {k: tuple(v) if isinstance(v, list) else v for k, v in fields.items()}
 
 
-def params_from_jax(tree) -> dict:
-    """JAX parameter tree (nested dicts/lists of arrays) -> torch state_dict."""
+_LSTM_LEAVES = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih", "b_hh": "bias_hh"}
+
+
+def params_from_jax(tree, conv_layout: str = "HIO") -> dict:
+    """JAX parameter tree (nested dicts/lists of arrays) -> torch state_dict.
+    ``conv_layout``: how the family stores 3-D conv kernels, "HIO" (speech
+    encoder) or "OIH" (codec encoders)."""
     import torch
 
+    if conv_layout not in ("HIO", "OIH"):
+        raise ValueError(f"conv_layout must be 'HIO' or 'OIH', got {conv_layout!r}")
     state = {}
     for key, arr in flatten_pytree(tree).items():
         *path, leaf = key.split("/")
@@ -97,11 +113,15 @@ def params_from_jax(tree) -> dict:
             if arr.ndim == 2:
                 arr = arr.T
             elif arr.ndim == 3:
-                arr = arr.transpose(2, 1, 0)
+                if conv_layout == "HIO":
+                    arr = arr.transpose(2, 1, 0)
             else:
                 raise ValueError(f"{key}: unexpected kernel rank {arr.ndim}")
         elif leaf == "scale":
             leaf = "weight"
+        elif leaf in _LSTM_LEAVES and len(path) >= 2 and path[-2] == "layers":
+            leaf = f"{_LSTM_LEAVES[leaf]}_l{int(path[-1])}"
+            path = [*path[:-2], "lstm"]
         state[".".join([*path, leaf])] = torch.tensor(arr)  # copies: JAX arrays are read-only
     return state
 
