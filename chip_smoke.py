@@ -27,6 +27,14 @@ Phases:
      128/30000, 256/6000, none a multiple of the kernel's tile) in f32 and
      bf16, plus small ragged cases (T = 1001 and the minimum T = 3); no
      single library call computes it;
+   - K3, the fused log-mel spectrogram: Whisper's geometry at B=16 (3000
+     frames of 400 per 30 s window, read through the strided view of the
+     reflect-padded signal, F=201, M=80) in ``log10_clamp``; ``ln_offset``
+     at VGGish's bases (W=400, F=257, M=64) on 256 x 96 contiguous frames;
+     ``db_clamp`` at CLAP's (W=1024, hop 480, F=513, M=64, 48 kHz) on
+     B=16 x 1001 contiguous frames; small ragged cases. The library
+     yardstick is the chain torch.stft (periodic Hann) -> abs()² -> mel
+     matmul -> clamp/log on the same signal;
 4. full-width forwards (random weights from a seed) of w2v2-base,
    wavlm-base-plus and MERT-v1-95M (24 kHz, T=749): f32 on the card against
    f32 on the CPU, same weights, one 10 s clip; then batch-16 forward times
@@ -39,16 +47,24 @@ Phases:
    window; then batch-16 10 s forwards of encodec-emb in f32 and bf16, each
    with the knob off and on (the A/B), and dac-44kHz forwards of 8 windows in
    f32 and bf16, with the device time by kernel and the idle share;
-6. the main paths through the CLI (``fadtk_tpu_torch.cli.main.main``) on two
+6. the mel families through their model classes, f32 on the card against
+   f32 on the CPU, same weights: whisper-base on one 30 s window and vggish
+   on one 5 s clip; then vggish's network on one cross-file batch of 256
+   examples, and batch-16 forwards (frontend included) of whisper-base and
+   of whisper-large, the widest published geometry (d=1280, 32+32 layers, 20
+   heads; random weights drawn on the card), each in f32 and bf16, with the
+   device time by kernel and the idle share;
+7. the main paths through the CLI (``fadtk_tpu_torch.cli.main.main``) on two
    generated datasets of 16 WAV clips each (full 10 s and ragged 2-9 s clips,
    some at 44.1 kHz so the host resampler runs): w2v2-base and
    wavlm-base-plus in f32 and ``--bf16``, MERT-v1-95M ``--bf16`` (resampled to
    24 kHz), encodec-emb in f32 and ``--bf16`` with the knob on,
-   encodec-emb-48k ``--bf16`` and dac-44kHz ``--bf16``. Every kernel launch
-   count is set to 0 just before each run and read just after it: K1/K1b
-   must launch 12 times per speech device batch, K4 4 times per encodec-emb
-   forward, and no kernel elsewhere;
-7. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+   encodec-emb-48k ``--bf16``, dac-44kHz ``--bf16``, whisper-base in f32 and
+   ``--bf16`` and vggish ``--bf16``. Every kernel launch count is set to 0
+   just before each run and read just after it: K1/K1b must launch 12 times
+   per speech device batch, K4 4 times per encodec-emb forward, K3 once per
+   whisper forward, and no kernel elsewhere;
+8. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -84,6 +100,12 @@ K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # The four K4 call sites of one encodec-emb forward of 10 s clips (24 kHz):
 # (C, T) after each downsampling stage; 4 launches per forward.
 K4_SHAPES = [(32, 240000), (64, 120000), (128, 30000), (256, 6000)]
+# K3 vs its twin on log values (tests/test_torch_fused_log_mel.py's card
+# bounds): float32 FMA chains against cuBLAS's float32 GEMMs (TF32 off) sum
+# in other orders; a relative error e of a mel value moves log10 by e/ln 10
+# and the dB value by 10 times that. The torch.stft chain (cuFFT) is held to
+# ten times these, as a check that it computes the same function.
+K3_ATOL = {"ln_offset": 1e-4, "log10_clamp": 1e-4, "db_clamp": 1e-3}
 # Roofline of one H100 SXM (NVIDIA data sheet; dense, at 700 W): memory rate
 # and peak rates by input type (bf16 on tensor cores, f32 on CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
@@ -287,6 +309,115 @@ def k4_path_checks(torch, fr) -> dict:
     return summed["float32"]
 
 
+def log_mel_bound(n: int, w: int, f: int, m: int, in_bytes: int) -> dict:
+    """The least time the card could take for one fused log-mel call over n
+    frames: both DFT products (2·N·W·2F FLOP) and the mel product (2·N·F·M)
+    at the f32 rate, against the frames' source read once (``in_bytes``:
+    the padded signal for the strided view, the (N, W) frames otherwise),
+    the bases read once and the (N, M) output written once, all float32."""
+    flops = 2 * n * w * 2 * f + 2 * n * f * m
+    nbytes = in_bytes + 4 * (2 * w * f + f * m) + 4 * n * m
+    return {"flops": flops, "bytes": nbytes, **_roofline(flops, nbytes, "float32")}
+
+
+def check_log_mel(torch, k3, label: str, frames, bases, log_mode: str, log_offset: float = 0.0,
+                  in_bytes: int | None = None, library=None) -> dict:
+    """K3 vs its twin on ``frames``; with ``library`` (the torch.stft chain
+    on the frames' signal), also that chain's agreement, and the CUDA-event
+    times of kernel, twin and chain beside the bound."""
+    def kernel():
+        return k3.fused_log_mel(frames, *bases, log_mode=log_mode, log_offset=log_offset)
+
+    def twin():
+        return k3.fused_log_mel_reference(frames, *bases, log_mode=log_mode,
+                                          log_offset=log_offset)
+
+    out, ref = kernel(), twin()
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: {tuple(out.shape)} vs {tuple(ref.shape)} or non-finite")
+    err = (out - ref).abs().max().item()
+    tol = K3_ATOL[log_mode]
+    line = (f"{label}: {tuple(out.shape)} max_abs_err={err:.3e} (atol {tol:g}; "
+            f"max|twin| {ref.abs().max().item():.3f})")
+    result = {"max_abs_err": err}
+    if library is not None:
+        lib_err = (library().reshape(ref.shape) - ref).abs().max().item()
+        ms, plain_ms, library_ms = (cuda_ms(torch, fn) for fn in (kernel, twin, library))
+        w, f, m = frames.shape[-1], bases[0].shape[1], bases[2].shape[1]
+        bound = log_mel_bound(ref.numel() // m, w, f, m, in_bytes)
+        result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                      bound_by=bound["bound_by"], library_ms=library_ms)
+        line += (f"; stft chain vs twin {lib_err:.3e}; kernel={ms:.4f} ms plain={plain_ms:.4f} "
+                 f"ms stft chain={library_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.2f} us by "
+                 f"{bound['bound_by']} ({bound['flops'] / 1e9:.3f} GFLOP, "
+                 f"{bound['bytes'] / 1e6:.2f} MB)")
+        if not lib_err <= 10 * tol:
+            raise AssertionError(f"{label}: the stft chain differs from the twin by {lib_err}")
+    print(line, flush=True)
+    del out, ref
+    if not err <= tol:
+        raise AssertionError(f"{label}: kernel vs twin max_abs_err {err} > {tol}")
+    return result
+
+
+def k3_path_checks(torch, k3) -> dict:
+    """K3 in its three modes at the mel families' geometries, and ragged
+    tiles. Returns the kernels-line entry of Whisper's B=16 call."""
+    import torch.nn.functional as F
+
+    from fadtk_tpu_torch.dsp import mel as dmel
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twin's GEMMs stay f32
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def stft_power(x, n_fft, hop, win_length, center):
+        window = torch.hann_window(win_length, periodic=True, device=dev)
+        spec = torch.stft(x, n_fft, hop, win_length=win_length, window=window, center=center,
+                          pad_mode="reflect", return_complex=True)
+        return spec.abs() ** 2  # (..., F, frames)
+
+    # Whisper: 16 windows of 30 s, frames read through the strided view.
+    audio = torch.randn((BATCH, dmel.WHISPER_SAMPLES), generator=g, device=dev) * 0.1
+    wb = dmel._device_bases("whisper", dev)
+    whisper = check_log_mel(
+        torch, k3, f"K3 log10_clamp Whisper B={BATCH} (strided view)",
+        dmel.whisper_frames(audio), wb, "log10_clamp",
+        in_bytes=4 * BATCH * (dmel.WHISPER_SAMPLES + 400),
+        library=lambda: torch.log10(torch.clamp_min(
+            stft_power(audio, 400, 160, 400, True)[..., :-1].transpose(1, 2) @ wb[2], 1e-10)))
+
+    # VGGish's bases: one cross-file batch of 256 examples of 96 frames from
+    # one signal, VALID framing. torch.stft centres the 400-sample window in
+    # its 512-sample frame, so the signal gets 56 zeros on each side.
+    n = 256 * 96
+    sig = torch.randn(((n - 1) * 160 + 400,), generator=g, device=dev) * 0.1
+    frames = sig.unfold(0, 400, 160).contiguous()
+    vb = dmel._device_bases("vggish", dev)
+    padded = F.pad(sig, (56, 56))
+    check_log_mel(torch, k3, f"K3 ln_offset VGGish bases N={n}", frames, vb, "ln_offset", 0.01,
+                  in_bytes=4 * frames.numel(),
+                  library=lambda: torch.log(
+                      stft_power(padded, 512, 160, 400, False).T @ vb[2] + 0.01))
+
+    # CLAP's (laion, 48 kHz): 16 windows of 10 s, centred reflect framing.
+    clap = torch.randn((BATCH, 480000), generator=g, device=dev) * 0.1
+    frames = F.pad(clap[:, None], (512, 512), mode="reflect")[:, 0].unfold(-1, 1024, 480)
+    frames = frames.contiguous().reshape(-1, 1024)
+    cb = dmel._device_bases("torchlibrosa", dev, 1024, 48000, 64, 50.0, 14000.0)
+    check_log_mel(torch, k3, f"K3 db_clamp CLAP bases N={frames.shape[0]}", frames, cb,
+                  "db_clamp", in_bytes=4 * frames.numel(),
+                  library=lambda: 10.0 * torch.log10(torch.clamp_min(
+                      stft_power(clap, 1024, 480, 1024, True).transpose(1, 2) @ cb[2], 1e-10)))
+    del audio, sig, frames, padded, clap
+
+    for n in (1, 65, 130):  # ragged frame tiles, three clips
+        check_log_mel(torch, k3, f"K3 log10_clamp ragged B=3 N={n}",
+                      torch.randn((3, n, 400), generator=g, device=dev) * 0.1, wb, "log10_clamp")
+    return whisper
+
+
 def card_vs_cpu(torch, model_name: str):
     """Full-width f32 forward of ``model_name``'s encoder on the card vs the
     CPU, same weights, one 10 s clip. Returns the card model."""
@@ -390,10 +521,11 @@ def profile_forward(torch, label: str, forward) -> None:
         print(f"  {t:8.3f} ms {100 * t / busy:5.1f}%  {k[:100]}", flush=True)
 
 
-def codec_card_vs_cpu(torch, model_name: str, audio, knobs=("",)):
-    """``model_name``'s ``_embed`` (its own windowing or segmenting) in f32 on
-    the card vs the CPU, random weights from seed 0 in both, once for each
-    value of FADTK_TPU_FUSED_RESNET in ``knobs``. Returns the card model."""
+def model_card_vs_cpu(torch, model_name: str, audio, knobs=("",)):
+    """``model_name``'s ``_embed`` (its own windowing, segmenting or
+    frontend) in f32 on the card vs the CPU, random weights from seed 0 in
+    both, once for each value of FADTK_TPU_FUSED_RESNET in ``knobs``.
+    Returns the card model."""
     from fadtk_tpu_torch.models.registry import get_model
 
     models = {}
@@ -423,11 +555,12 @@ def codec_card_vs_cpu(torch, model_name: str, audio, knobs=("",)):
     return models["cuda"]
 
 
-def codec_forward_breakdown(torch, model, forward, shape: tuple, audio_s: float, unit: str,
+def module_forward_breakdown(torch, model, forward, shape: tuple, audio_s: float, unit: str,
                             knobs=("",)) -> None:
-    """Forwards of ``model``'s module on a random (B, channels, T) batch in f32
-    and bf16, each with every knob value: median CUDA-event time, then one
-    profiled forward each."""
+    """Forwards of ``model``'s module on a random input of ``shape`` (audio
+    (B, channels, T), or vggish's (N, 96, 64) examples) in f32 and bf16, each
+    with every knob value: median CUDA-event time, then one profiled forward
+    each."""
     import copy
 
     m32 = model.module
@@ -449,6 +582,46 @@ def codec_forward_breakdown(torch, model, forward, shape: tuple, audio_s: float,
             profile_forward(torch, label, lambda: run(module))
             os.environ.pop("FADTK_TPU_FUSED_RESNET")
     del m16
+
+
+def whisper_forward_breakdown(torch, size: str, module=None, runs: int = 10) -> None:
+    """Batch-16 forwards of 30 s windows, frontend (K3) included: median
+    CUDA-event time in f32 and bf16, then one profiled forward each. Without
+    ``module``, random weights drawn on the card from the seed (whisper-large
+    has 1.55 B parameters)."""
+    import copy
+
+    from fadtk_tpu_torch.dsp.mel import WHISPER_SAMPLES, whisper_log_mel
+    from fadtk_tpu_torch.models import whisper_impl as wi
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if module is None:
+        t0 = time.perf_counter()
+        with torch.device("cuda"):
+            module = wi.Whisper(wi.config_for_size(size))
+        wi.init_whisper_params(module, torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in module.parameters())
+        print(f"whisper-{size}: {n_params / 1e9:.3f} B random parameters drawn on the card in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    m16 = copy.deepcopy(module).to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    audio = torch.randn((BATCH, WHISPER_SAMPLES), generator=g, device="cuda") * 0.1
+
+    def run(m):
+        with torch.inference_mode():
+            return wi.whisper_forward(m, whisper_log_mel(audio))
+
+    for name, m in (("f32", module), ("bf16", m16)):
+        out = run(m)
+        if out.shape != (BATCH, 2, m.cfg.d_model) or not torch.isfinite(out).all():
+            raise AssertionError(f"whisper-{size} {name}: {tuple(out.shape)} or non-finite")
+        ms = cuda_ms(torch, lambda: run(m), runs=runs)
+        print(f"whisper-{size} forward {name}: {ms:.3f} ms per batch of {BATCH} x 30 s = "
+              f"{BATCH * 30 / ms * 1e3:.1f} window-s/s", flush=True)
+        profile_forward(torch, f"whisper-{size} {name} B={BATCH}", lambda: run(m))
+    del m16, module
 
 
 def make_dataset(root: Path, name: str, seed: int) -> float:
@@ -476,14 +649,22 @@ def make_dataset(root: Path, name: str, seed: int) -> float:
 def path_shape(model, lengths: list[int]) -> tuple[list[int], int]:
     """Frames of each clip's embedding and the device forwards that one
     ``embed_batch`` call over a dataset's clips (converted lengths in
-    samples) makes, by family: the speech bucketing, encodec-emb's groups of
-    one exact length (64 to a forward, 320-sample hop), encodec-emb-48k's
-    full 1 s segments (150 frames each) and tail, dac-44kHz's 5 s windows at
-    50 % overlap (430 frames each, 8 to a forward)."""
+    samples) makes, by family: whisper's 2 frames per 30 s window (16 windows
+    to a forward), vggish's 0.96 s examples (256 to a forward), the speech
+    bucketing, encodec-emb's groups of one exact length (64 to a forward,
+    320-sample hop), encodec-emb-48k's full 1 s segments (150 frames each)
+    and tail, dac-44kHz's 5 s windows at 50 % overlap (430 frames each, 8 to
+    a forward)."""
     from collections import Counter
 
+    from fadtk_tpu_torch.dsp.mel import vggish_num_examples
     from fadtk_tpu_torch.utils import next_multiple
 
+    if model.name.startswith("whisper-"):
+        return [2] * len(lengths), -(-len(lengths) // model.BATCH)
+    if model.name == "vggish":
+        examples = [vggish_num_examples(n) for n in lengths]
+        return examples, -(-sum(examples) // model.EXAMPLE_BATCH)
     if model.name == "encodec-emb":
         groups = Counter(lengths).values()
         return ([-(-n // 320) for n in lengths],
@@ -518,7 +699,7 @@ def cli_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: b
     csv = work / f"scores-{key}.csv"
     reports: list[dict] = []
     real_report = profiling.report
-    fa, fr = kernels
+    fa, fr, k3 = kernels
 
     def capture(reset: bool = True):
         reports.append(real_report(reset))
@@ -532,11 +713,13 @@ def cli_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: b
         fa.flash_attention_packed.launches = 0
         fa.flash_attention_packed.bias_launches = 0
         fr.fused_resnet_causal.launches = 0
+        k3.fused_log_mel.launches = 0
         cli.main()
         torch.cuda.synchronize()
         launches = {"K1": fa.flash_attention_packed.launches,
                     "K1b": fa.flash_attention_packed.bias_launches,
-                    "K4": fr.fused_resnet_causal.launches}
+                    "K4": fr.fused_resnet_causal.launches,
+                    "K3": k3.fused_log_mel.launches}
     finally:
         profiling.report = real_report
         os.environ.pop("FADTK_TPU_BF16", None)
@@ -590,11 +773,13 @@ def cli_runs(torch, kernels, work: Path) -> dict:
             ("wavlm-base-plus", False, None, None), ("wavlm-base-plus", True, None, ("K1b", 12)),
             ("MERT-v1-95M", True, None, ("K1", 12)),
             ("encodec-emb", False, fused, ("K4", 4)), ("encodec-emb", True, fused, ("K4", 4)),
-            ("encodec-emb-48k", True, None, None), ("dac-44kHz", True, None, None)]
-    totals = {"K1": 0, "K1b": 0, "K4": 0}
+            ("encodec-emb-48k", True, None, None), ("dac-44kHz", True, None, None),
+            ("whisper-base", False, None, ("K3", 1)), ("whisper-base", True, None, ("K3", 1)),
+            ("vggish", True, None, None)]
+    totals = {"K1": 0, "K1b": 0, "K4": 0, "K3": 0}
     for model_name, bf16, env, kernel in runs:
         got = cli_run(torch, kernels, work, seconds, model_name, bf16, env)
-        want = {"K1": 0, "K1b": 0, "K4": 0}
+        want = {"K1": 0, "K1b": 0, "K4": 0, "K3": 0}
         if kernel:
             want[kernel[0]] = kernel[1] * got["forwards"]
         if {k: got[k] for k in want} != want:
@@ -635,11 +820,12 @@ def main() -> int:
         from concurrent.futures import ThreadPoolExecutor
 
         from fadtk_tpu_torch.ops import flash_attention as fa
+        from fadtk_tpu_torch.ops import fused_log_mel as k3
         from fadtk_tpu_torch.ops import fused_resnet as fr
 
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-            libs = list(pool.map(lambda m: m.library_path(), (fa, fr)))
+        with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+            libs = list(pool.map(lambda m: m.library_path(), (fa, fr, k3)))
         print(f"built {', '.join(str(lib.relative_to(REPO)) for lib in libs)} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for lib in libs:
@@ -655,6 +841,7 @@ def main() -> int:
         check_kernel(torch, fa, torch.float32, 499, 12, bias=True)
         check_kernel(torch, fa, torch.bfloat16, 499, 16, bias=True)
         k4 = k4_path_checks(torch, fr)
+        k3_entry = k3_path_checks(torch, k3)
         torch.cuda.empty_cache()
 
         for model_name in ("w2v2-base", "wavlm-base-plus", "MERT-v1-95M"):
@@ -669,6 +856,7 @@ def main() -> int:
 
         from fadtk_tpu_torch.models.dac_impl import dac_encode
         from fadtk_tpu_torch.models.encodec_impl import encodec_encode
+        from fadtk_tpu_torch.models.vggish import vggish_forward
 
         work = Path(tempfile.mkdtemp(prefix="fadtk_tpu_torch_smoke_"))
         os.environ["FADTK_TPU_RANDOM_WEIGHTS"] = "1"
@@ -676,26 +864,42 @@ def main() -> int:
         os.environ.pop("FADTK_TPU_BF16", None)
         rng = np.random.default_rng(SEED)
         phase("encodec-emb f32: card vs cpu, fused block off and on")
-        enc24 = codec_card_vs_cpu(torch, "encodec-emb",
+        enc24 = model_card_vs_cpu(torch, "encodec-emb",
                                   (rng.standard_normal((1, 240000)) * 0.1).astype(np.float32),
                                   knobs=("0", "1"))
         phase("encodec-emb forward, batch 16 x 10 s: fused block off and on")
-        codec_forward_breakdown(torch, enc24, encodec_encode, (BATCH, 1, 240000), BATCH * 10.0,
+        module_forward_breakdown(torch, enc24, encodec_encode, (BATCH, 1, 240000), BATCH * 10.0,
                                 "audio-s", knobs=("0", "1"))
         del enc24
         phase("encodec-emb-48k f32: card vs cpu, 2.5 s stereo")
-        codec_card_vs_cpu(torch, "encodec-emb-48k",
+        model_card_vs_cpu(torch, "encodec-emb-48k",
                           (rng.standard_normal((2, 120000)) * 0.1).astype(np.float32))
         phase("dac-44kHz f32: card vs cpu, one 5 s window")
-        dac = codec_card_vs_cpu(torch, "dac-44kHz", rng.standard_normal(220500) * 0.1)
+        dac = model_card_vs_cpu(torch, "dac-44kHz", rng.standard_normal(220500) * 0.1)
         phase("dac-44kHz forward, batch of 8 windows")
-        codec_forward_breakdown(torch, dac, dac_encode, (8, 1, 220500), 8 * 5.0, "window-s")
+        module_forward_breakdown(torch, dac, dac_encode, (8, 1, 220500), 8 * 5.0, "window-s")
         del dac
         torch.cuda.empty_cache()
 
-        phase("main paths: CLI w2v2-base, wavlm-base-plus, encodec-emb f32 and --bf16; "
-              "MERT, encodec-emb-48k, dac-44kHz --bf16")
-        launches = cli_runs(torch, (fa, fr), work)
+        phase("whisper-base f32: card vs cpu, one 30 s window")
+        whisper = model_card_vs_cpu(torch, "whisper-base",
+                                    rng.standard_normal(30 * SR) * 0.1)
+        phase("vggish f32: card vs cpu, one 5 s clip")
+        vgg = model_card_vs_cpu(torch, "vggish", rng.standard_normal(5 * SR) * 0.1)
+        phase("vggish forward, one cross-file batch of 256 examples (frontend excluded)")
+        module_forward_breakdown(torch, vgg, vggish_forward, (256, 96, 64), 256 * 0.96,
+                                 "audio-s")
+        del vgg
+        phase("whisper-base forward, batch 16 x 30 s: f32 and bf16")
+        whisper_forward_breakdown(torch, "base", whisper.module)
+        del whisper
+        phase("whisper-large forward, batch 16 x 30 s: f32 and bf16")
+        whisper_forward_breakdown(torch, "large", runs=3)
+        torch.cuda.empty_cache()
+
+        phase("main paths: CLI w2v2-base, wavlm-base-plus, encodec-emb, whisper-base f32 and "
+              "--bf16; MERT, encodec-emb-48k, dac-44kHz, vggish --bf16")
+        launches = cli_runs(torch, (fa, fr, k3), work)
 
         if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
             raise AssertionError("jax was imported")
@@ -713,6 +917,10 @@ def main() -> int:
              "source": "fadtk_tpu_torch/csrc/fused_resnet_causal.cu",
              "replaces": "fadtk_tpu/ops/fused_resnet.py:125",
              "launches": launches["K4"], **k4},
+            {"name": "fused_log_mel (log10_clamp, Whisper B=16)", "route": "cuda",
+             "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
+             "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",
+             "launches": launches["K3"], **k3_entry},
         ]}))
     except Exception:
         traceback.print_exc()

@@ -1,4 +1,7 @@
-"""Hand-written CUDA kernels for the hot model ops, each beside its plain twin."""
+"""Hand-written CUDA kernels for the hot model ops, each beside its plain twin.
+
+The fused log-mel kernel (K3) is imported as its module,
+``fadtk_tpu_torch.ops.fused_log_mel``, whose name its function shares."""
 
 from .flash_attention import (
     flash_attention_enabled,

@@ -17,6 +17,8 @@ mapping is mechanical:
     frameworks lay groups out contiguously along C_out);
   - "OIH" (C_out, C_in, K), the codec encoders' (EnCodec, DAC), which keep
     PyTorch's order: unchanged;
+- 2-D conv ``kernel`` HWIO (KH, KW, C_in, C_out), VGGish's -> ``weight``
+  OIHW (C_out, C_in, KH, KW)                                     (nn.Conv2d)
 - norm ``scale``                     -> ``weight``
 - LSTM layer ``j``'s ``layers/{j}/w_ih|w_hh|b_ih|b_hh`` -> ``lstm.weight_ih_l{j}``,
   ``weight_hh_l{j}``, ``bias_ih_l{j}``, ``bias_hh_l{j}`` (nn.LSTM; same gate
@@ -97,7 +99,7 @@ _LSTM_LEAVES = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih", "b_
 def params_from_jax(tree, conv_layout: str = "HIO") -> dict:
     """JAX parameter tree (nested dicts/lists of arrays) -> torch state_dict.
     ``conv_layout``: how the family stores 3-D conv kernels, "HIO" (speech
-    encoder) or "OIH" (codec encoders)."""
+    encoder, Whisper) or "OIH" (codec encoders); 4-D kernels are HWIO."""
     import torch
 
     if conv_layout not in ("HIO", "OIH"):
@@ -115,6 +117,8 @@ def params_from_jax(tree, conv_layout: str = "HIO") -> dict:
             elif arr.ndim == 3:
                 if conv_layout == "HIO":
                     arr = arr.transpose(2, 1, 0)
+            elif arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
             else:
                 raise ValueError(f"{key}: unexpected kernel rank {arr.ndim}")
         elif leaf == "scale":

@@ -263,8 +263,8 @@ def test_embed_batch_matches_single_clips(random_weights):
 
 
 def test_registry_parity_with_jax_package():
-    """The port registers the JAX registry's speech and codec variants, in its
-    order: 135 of 146."""
+    """The port registers the JAX registry's speech, codec, VGGish and
+    Whisper variants, in its order: 141 of 146."""
     from fadtk_tpu.models.registry import get_all_models as jax_models
 
     from fadtk_tpu_torch.models.registry import get_all_models
@@ -273,7 +273,7 @@ def test_registry_parity_with_jax_package():
     names = {m.name for m in got}
     want = [m for m in jax_models() if m.name in names]
     assert [m.name for m in got] == [m.name for m in want]
-    assert len(got) == 135 and len(jax_models()) == 146
+    assert len(got) == 141 and len(jax_models()) == 146
     for g, w in zip(got, want):
         if g.name.startswith(("encodec-", "dac-")):
             assert (g.name, g.sr, g.num_features, type(g).__name__) == (
