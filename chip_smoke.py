@@ -27,6 +27,13 @@ Phases:
      128/30000, 256/6000, none a multiple of the kernel's tile) in f32 and
      bf16, plus small ragged cases (T = 1001 and the minimum T = 3); no
      single library call computes it;
+   - K2, the head-major flash attention, the tensor-parallel path's kernel
+     for WavLM: B=16/T=499 with the factorized bias in bf16 at H=12
+     (wavlm-base-plus), H=16 (wavlm-large) and H=6 (a tp=2 shard) and in f32
+     at H=12, without bias in bf16, in the grouped form (G heads per CTA) in
+     bf16, and the bf16 bias case again through the strided head-split views
+     of packed (B, T, H*D) tensors; ragged n_valid, SDPA on the same
+     head-major tensors as the yardstick;
    - K3, the fused log-mel spectrogram: Whisper's geometry at B=16 (3000
      frames of 400 per 30 s window, read through the strided view of the
      reflect-padded signal, F=201, M=80) in ``log10_clamp``; ``ln_offset``
@@ -64,7 +71,17 @@ Phases:
    just before each run and read just after it: K1/K1b must launch 12 times
    per speech device batch, K4 4 times per encodec-emb forward, K3 once per
    whisper forward, and no kernel elsewhere;
-8. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+8. the device pipeline through the CLI (``--device-pipeline``: no embedding
+   caches, statistics on the card) on the same two datasets: w2v2-base and
+   wavlm-base-plus in f32 and ``--bf16``, and w2v2-base f32 with ``--batch 4``
+   and a checkpoint every 4 files. K1 must launch 12 times per device batch
+   for w2v2-base bf16 and K2 12 times per device batch for wavlm-base-plus
+   bf16 (its tensor-parallel step at tp=1), no kernel elsewhere; the frame
+   count must match the clips, the f32 statistics the cached path's
+   ``stats/<model>/`` (mu 1e-3, cov 5e-3) and the score the cached path's
+   (1e-3 relative); the pipeline's audio-s/s is printed beside the cached
+   path's embed-stage rate;
+9. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -116,19 +133,27 @@ def phase(name: str) -> None:
     print(f"\n== {name}", flush=True)
 
 
-def cuda_ms(torch, fn, runs: int = 25) -> float:
-    """Median of per-call CUDA-event times (ms) after two warm-up calls."""
+def cuda_ms(torch, fn, runs: int = 25, groups: int = 5) -> float:
+    """Time per call (ms), after two warm-up calls: the median over
+    ``groups`` of the CUDA-event time of ``runs // groups`` back-to-back
+    calls, divided by their number. Back to back, the host enqueues the next
+    call while the card runs this one, so a short kernel's time excludes its
+    wrapper's Python checks (an event pair around each single call counts
+    them as idle card time)."""
     for _ in range(2):
         fn()
+    groups = min(groups, runs)
+    per = runs // groups
     times = []
-    for _ in range(runs):
+    for _ in range(groups):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
 
 
@@ -228,6 +253,92 @@ def check_kernel(torch, fa, dtype, t: int, heads: int, bias: bool) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "library_ms": library_ms}
+
+
+def check_k2(torch, fa, dtype, heads: int, form: str, strided: bool = False) -> dict:
+    """K2 vs its twin at (BATCH, heads, 499, HEAD_DIM), head-major, with the
+    ragged n_valid of ``check_kernel``. ``form``: "bias" (pb (H, T, T) ~
+    N(0, 1), gate (B, H, T) in [1, 3]), "plain" or "grouped" (no bias, G
+    heads per CTA). ``strided``: q, k, v are the head-split views of packed
+    (B, T, H*D) tensors, as the tensor-parallel path passes them. Times the
+    kernel, the twin and ``F.scaled_dot_product_attention`` on the same
+    tensors (with bias, the dense float mask built untimed)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    t = 499
+    name = str(dtype).split(".")[-1]
+    g = torch.Generator(device=dev).manual_seed(SEED + heads + len(form))
+    if strided:
+        q, k, v = (torch.randn((BATCH, t, heads * HEAD_DIM), generator=g, device=dev).to(dtype)
+                   .view(BATCH, t, heads, HEAD_DIM).transpose(1, 2) for _ in range(3))
+    else:
+        q, k, v = (torch.randn((BATCH, heads, t, HEAD_DIM), generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+    nv_list = [1, 64, 65, t, t - 1, 128, 2, 200, 63, t, 129, 300, t // 2, 450, 191, t]
+    nv = torch.tensor(nv_list, dtype=torch.int32, device=dev)
+    extra = (None, None)
+    if form == "bias":
+        pb = torch.randn((heads, t, t), generator=g, device=dev)
+        gate = torch.rand((BATCH, heads, t), generator=g, device=dev) * 2.0 + 1.0
+        extra = (pb, gate)
+    grouped = form == "grouped"
+    counter = {"bias": "bias_launches", "grouped": "grouped_launches", "plain": "launches"}[form]
+    before = getattr(fa.flash_attention, counter)
+    out = fa.flash_attention(q, k, v, nv, *extra, grouped=grouped)
+    ref = fa.flash_attention_reference(q, k, v, nv, *extra)
+    torch.cuda.synchronize()
+    label = f"K2 {form} {name} B={BATCH} T={t} H={heads}" + (" (strided views)" if strided else "")
+    if getattr(fa.flash_attention, counter) != before + 1:
+        raise AssertionError(f"{label}: the {counter} counter did not count the launch")
+    if out.shape != q.shape or out.stride() != q.stride() or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"{label}: {tuple(out.shape)} {out.stride()} or non-finite values")
+    err = 0.0
+    for b, n in enumerate(nv_list):
+        err = max(err, (out[b, :, :n].float() - ref[b, :, :n].float()).abs().max().item())
+        dead = -(-n // 64) * 64
+        if dead < t and out[b, :, dead:].abs().max().item() != 0.0:
+            raise AssertionError(f"{label} b={b}: fully padded tile not zero")
+    tol = ATOL[name]
+    key_live = torch.arange(t, device=dev)[None, :] < nv[:, None].long()
+    if form == "bias":
+        neg = torch.finfo(torch.float32).min
+        mask = (gate[..., None] * pb[None]).masked_fill(~key_live[:, None, None, :], neg).to(dtype)
+    else:
+        mask = key_live[:, None, None, :]
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, nv, *extra, grouped=grouped))
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_reference(q, k, v, nv, *extra))
+    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    bound = attention_bound(nv_list, t, heads, name, form == "bias")
+    group = ""
+    if grouped:
+        code = {"float32": 0, "bfloat16": 1}[name]
+        group = f"; G={fa._library().fadtk_flash_attention_pick_group(BATCH, t, heads, code)}"
+    print(f"{label}: max_abs_err={err:.3e} (atol {tol:g}){group}; kernel={ms:.4f} ms "
+          f"plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms (mask prebuilt, untimed); "
+          f"bound {bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']} "
+          f"({bound['gflop']:.3f} GFLOP, {bound['mbytes']:.2f} MB)", flush=True)
+    del mask, ref, out
+    if not err <= tol:
+        raise AssertionError(f"{label}: kernel vs twin max_abs_err {err} > {tol}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": library_ms}
+
+
+def k2_checks(torch, fa) -> tuple[dict, dict]:
+    """K2 in every form at the main path's shapes; returns the kernels-line
+    entries of the bf16 bias case at H=12 and of the grouped case."""
+    bias = check_k2(torch, fa, torch.bfloat16, 12, "bias")
+    check_k2(torch, fa, torch.bfloat16, 16, "bias")
+    check_k2(torch, fa, torch.bfloat16, 6, "bias")
+    check_k2(torch, fa, torch.float32, 12, "bias")
+    check_k2(torch, fa, torch.bfloat16, 12, "plain")
+    grouped = check_k2(torch, fa, torch.bfloat16, 12, "grouped")
+    strided = check_k2(torch, fa, torch.bfloat16, 12, "bias", strided=True)
+    print(f"K2 bf16 bias H=12, contiguous / strided views: {bias['ms']:.4f} / "
+          f"{strided['ms']:.4f} ms", flush=True)
+    return bias, grouped
 
 
 def resnet_bound(b: int, c: int, t: int, dtype: str) -> dict:
@@ -710,16 +821,10 @@ def cli_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: b
                 *(["--bf16"] if bf16 else [])]
     os.environ.update(env or {})
     try:
-        fa.flash_attention_packed.launches = 0
-        fa.flash_attention_packed.bias_launches = 0
-        fr.fused_resnet_causal.launches = 0
-        k3.fused_log_mel.launches = 0
+        reset_counts(kernels)
         cli.main()
         torch.cuda.synchronize()
-        launches = {"K1": fa.flash_attention_packed.launches,
-                    "K1b": fa.flash_attention_packed.bias_launches,
-                    "K4": fr.fused_resnet_causal.launches,
-                    "K3": k3.fused_log_mel.launches}
+        launches = read_counts(kernels)
     finally:
         profiling.report = real_report
         os.environ.pop("FADTK_TPU_BF16", None)
@@ -756,12 +861,38 @@ def cli_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: b
         for stat in ("mu.npy", "cov.npy"):
             if not (work / ds / "stats" / key / stat).exists():
                 raise AssertionError(f"{ds}/stats/{key}/{stat} missing")
-    return {**launches, "forwards": n_forwards}
+    return {**launches, "forwards": n_forwards, "rate": seconds / embed_s, "score": score}
 
 
-def cli_runs(torch, kernels, work: Path) -> dict:
+KERNEL_KEYS = ("K1", "K1b", "K4", "K3", "K2", "K2g")
+
+
+def reset_counts(kernels) -> None:
+    """Every kernel launch count to 0."""
+    fa, fr, k3 = kernels
+    fa.flash_attention_packed.launches = fa.flash_attention_packed.bias_launches = 0
+    fa.flash_attention.launches = fa.flash_attention.bias_launches = 0
+    fa.flash_attention.grouped_launches = 0
+    fr.fused_resnet_causal.launches = 0
+    k3.fused_log_mel.launches = 0
+
+
+def read_counts(kernels) -> dict:
+    """The launch counts by kernel; K2 is the per-head grid (with or
+    without bias, ``flash_attention.py:490``), K2g the grouped one (:422)."""
+    fa, fr, k3 = kernels
+    return {"K1": fa.flash_attention_packed.launches,
+            "K1b": fa.flash_attention_packed.bias_launches,
+            "K4": fr.fused_resnet_causal.launches,
+            "K3": k3.fused_log_mel.launches,
+            "K2": fa.flash_attention.launches + fa.flash_attention.bias_launches,
+            "K2g": fa.flash_attention.grouped_launches}
+
+
+def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
     """Every main path through the CLI, on two generated datasets. Returns
-    the launches of each kernel summed over the runs that must launch it."""
+    the launches of each kernel summed over the runs that must launch it,
+    each run's results by cache key, and the seconds of audio."""
     os.environ.pop("FADTK_TPU_BF16", None)
     os.environ.pop("FADTK_TPU_FLASH_F32", None)
     seconds = make_dataset(work, "baseline", SEED + 1) + make_dataset(work, "eval", SEED + 2)
@@ -776,15 +907,132 @@ def cli_runs(torch, kernels, work: Path) -> dict:
             ("encodec-emb-48k", True, None, None), ("dac-44kHz", True, None, None),
             ("whisper-base", False, None, ("K3", 1)), ("whisper-base", True, None, ("K3", 1)),
             ("vggish", True, None, None)]
-    totals = {"K1": 0, "K1b": 0, "K4": 0, "K3": 0}
+    totals = dict.fromkeys(KERNEL_KEYS, 0)
+    cached = {}
     for model_name, bf16, env, kernel in runs:
         got = cli_run(torch, kernels, work, seconds, model_name, bf16, env)
-        want = {"K1": 0, "K1b": 0, "K4": 0, "K3": 0}
+        cached[model_name + ("-bf16" if bf16 else "")] = got
+        want = dict.fromkeys(KERNEL_KEYS, 0)
         if kernel:
             want[kernel[0]] = kernel[1] * got["forwards"]
         if {k: got[k] for k in want} != want:
             raise AssertionError(f"{model_name} bf16={bf16}: launches {got}, expected {want} "
                                  f"({got['forwards']} device forwards)")
+        for k in totals:
+            totals[k] += got[k]
+    return totals, cached, seconds
+
+
+def pipeline_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: bool,
+                 cached: dict, env: dict | None = None, argv: tuple = ()) -> dict:
+    """One ``--device-pipeline`` CLI run over the two datasets, after the
+    cached runs of ``cli_runs``. Checks the CSV row, that no embedding .npy
+    was written, the frame count of each dataset against the clips, and in
+    f32 the statistics and score against the cached path's. Returns the
+    launch counts (set to 0 just before the run, read just after it), the
+    device batches and checkpoint saves, and the pipeline's rate."""
+    import numpy as np
+
+    from fadtk_tpu_torch.audio.wavio import read_wav_int16
+    from fadtk_tpu_torch.cli import main as cli
+    from fadtk_tpu_torch.models.registry import get_model
+    from fadtk_tpu_torch.runner import device_pipeline as pipe
+    from fadtk_tpu_torch.runner import resume
+
+    model = get_model(model_name)
+    key = model_name + ("-bf16" if bf16 else "")
+    csv = work / f"pipeline-{key}{'-'.join(argv)}.csv"
+    stats, counts = {}, {"batches": 0, "saves": 0}
+    real = (pipe.dataset_stats_device, pipe.merge_partial_stats_device, resume.StatsCheckpoint.save)
+
+    def stats_device(model, files, **kw):
+        t0 = time.perf_counter()
+        out = real[0](model, files, **kw)
+        stats[Path(files).name] = (*out, time.perf_counter() - t0)
+        return out
+
+    def merge(*a, **kw):
+        counts["batches"] += 1
+        return real[1](*a, **kw)
+
+    def save(self, *a, **kw):
+        counts["saves"] += 1
+        return real[2](self, *a, **kw)
+
+    def npys():
+        return {(f, f.stat().st_mtime_ns) for f in work.glob("*/embeddings/*/*.npy")}
+
+    before = npys()
+    pipe.dataset_stats_device, pipe.merge_partial_stats_device = stats_device, merge
+    resume.StatsCheckpoint.save = save
+    sys.argv = ["fadtk", model_name, str(work / "baseline"), str(work / "eval"), str(csv),
+                "--device-pipeline", *(["--bf16"] if bf16 else []), *argv]
+    os.environ.update(env or {})
+    try:
+        reset_counts(kernels)
+        cli.main()
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+    finally:
+        pipe.dataset_stats_device, pipe.merge_partial_stats_device = real[:2]
+        resume.StatsCheckpoint.save = real[2]
+        os.environ.pop("FADTK_TPU_BF16", None)
+        for k in env or {}:
+            os.environ.pop(k)
+    if npys() != before:
+        raise AssertionError(f"[pipeline {key}] embedding .npy files were written")
+    rows = csv.read_text().strip().split("\n")
+    fields = rows[1].split(",") if len(rows) == 2 else []
+    if rows[0] != "model,baseline,eval,score,inf_r2,time" or not fields or fields[0] != key:
+        raise AssertionError(f"[pipeline {key}] unexpected CSV: {rows}")
+    score = float(fields[3])
+    pipe_s = sum(v[3] for v in stats.values())
+    print(f"[pipeline {key} {' '.join(argv)}] {env or ''} {rows[1]}; {counts['batches']} device "
+          f"batches, {counts['saves']} checkpoint saves; launches {launches}; "
+          f"{seconds:.1f} audio-s in {pipe_s:.3f} s = {seconds / pipe_s:.1f} audio-s/s "
+          f"(cached path's embed stage {cached[key]['rate']:.1f} audio-s/s)", flush=True)
+    for ds in ("baseline", "eval"):
+        mu, cov, n, _ = stats[ds]
+        lengths = [read_wav_int16(f)[0].shape[0]
+                   for f in sorted((work / ds / "convert" / str(model.sr)).glob("*.wav"))]
+        if len(lengths) != 16 or n != sum(path_shape(model, lengths)[0]):
+            raise AssertionError(f"[pipeline {key}] {ds}: {n} frames for {len(lengths)} clips")
+        if not bf16:
+            mu_c = np.load(work / ds / "stats" / key / "mu.npy")
+            cov_c = np.load(work / ds / "stats" / key / "cov.npy")
+            d_mu, d_cov = np.abs(mu - mu_c).max(), np.abs(cov - cov_c).max()
+            print(f"[pipeline {key}] {ds}: n={n}; vs cached stats mu {d_mu:.3e} (1e-3), "
+                  f"cov {d_cov:.3e} (5e-3)", flush=True)
+            if not (d_mu <= 1e-3 and d_cov <= 5e-3):
+                raise AssertionError(f"[pipeline {key}] {ds}: stats differ from the cached path")
+    rel = abs(score - cached[key]["score"]) / abs(cached[key]["score"])
+    print(f"[pipeline {key}] score {score} vs cached {cached[key]['score']}: relative "
+          f"{rel:.3e}", flush=True)
+    if not bf16 and not rel <= 1e-3:
+        raise AssertionError(f"[pipeline {key}] score differs from the cached path by {rel}")
+    return {**launches, **counts, "rate": seconds / pipe_s}
+
+
+def pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -> dict:
+    """Every ``--device-pipeline`` run; returns the launches of each kernel
+    summed over the runs that must launch it."""
+    # (model, bf16, env, argv, kernel that must launch 12 times a device batch)
+    runs = [("w2v2-base", False, None, (), None), ("w2v2-base", True, None, (), "K1"),
+            ("wavlm-base-plus", False, None, (), None),
+            ("wavlm-base-plus", True, None, (), "K2"),
+            ("w2v2-base", False, {"FADTK_TPU_CKPT_FILES": "4"}, ("--batch", "4"), None)]
+    totals = dict.fromkeys(KERNEL_KEYS, 0)
+    for model_name, bf16, env, argv, kernel in runs:
+        got = pipeline_run(torch, kernels, work, seconds, model_name, bf16, cached, env, argv)
+        batches = 2 * (16 // (4 if argv else 16))  # two datasets of 16 clips
+        want = dict.fromkeys(KERNEL_KEYS, 0)
+        if kernel:
+            want[kernel] = 12 * batches
+        if {k: got[k] for k in want} != want or got["batches"] != batches:
+            raise AssertionError(f"[pipeline {model_name} bf16={bf16}]: launches {got}, "
+                                 f"expected {want} in {batches} device batches")
+        if argv and got["saves"] < 2:
+            raise AssertionError(f"[pipeline {model_name} {argv}]: {got['saves']} checkpoint saves")
         for k in totals:
             totals[k] += got[k]
     return totals
@@ -840,6 +1088,7 @@ def main() -> int:
         k1b = check_kernel(torch, fa, torch.bfloat16, 499, 12, bias=True)
         check_kernel(torch, fa, torch.float32, 499, 12, bias=True)
         check_kernel(torch, fa, torch.bfloat16, 499, 16, bias=True)
+        k2, k2g = k2_checks(torch, fa)
         k4 = k4_path_checks(torch, fr)
         k3_entry = k3_path_checks(torch, k3)
         torch.cuda.empty_cache()
@@ -899,7 +1148,11 @@ def main() -> int:
 
         phase("main paths: CLI w2v2-base, wavlm-base-plus, encodec-emb, whisper-base f32 and "
               "--bf16; MERT, encodec-emb-48k, dac-44kHz, vggish --bf16")
-        launches = cli_runs(torch, (fa, fr, k3), work)
+        launches, cached, seconds = cli_runs(torch, (fa, fr, k3), work)
+
+        phase("device pipeline: CLI --device-pipeline w2v2-base, wavlm-base-plus f32 and --bf16, "
+              "w2v2-base --batch 4 with checkpoints")
+        pipeline = pipeline_runs(torch, (fa, fr, k3), work, cached, seconds)
 
         if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
             raise AssertionError("jax was imported")
@@ -921,6 +1174,12 @@ def main() -> int:
              "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
              "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",
              "launches": launches["K3"], **k3_entry},
+            {"name": "flash_attention (head-major, factorized bias)", "route": "cuda",
+             "source": source, "replaces": "fadtk_tpu/ops/flash_attention.py:490",
+             "launches": pipeline["K2"], **k2},
+            {"name": "flash_attention (head-major, grouped grid)", "route": "cuda",
+             "source": source, "replaces": "fadtk_tpu/ops/flash_attention.py:422",
+             "launches": pipeline["K2g"], **k2g},
         ]}))
     except Exception:
         traceback.print_exc()

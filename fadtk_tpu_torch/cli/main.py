@@ -5,10 +5,13 @@ Same command line, CSV format and summary line as ``fadtk_tpu.cli.main``
 
     python -m fadtk_tpu_torch <model> <baseline> <eval> [csv] [-w N] [--bf16]
                               [--frechet-method eigh|reference|newton_schulz]
+                              [--device-pipeline [--batch N] [--tp T] [--devices N]]
 
-``--inf``, ``--indiv``, ``--device-pipeline``, ``--device-scoring``, ``--tp``,
-``--multihost``, ``--devices`` and ``--batch`` are accepted and exit with a
-message: they are not ported yet.
+``--device-pipeline`` scores the speech family without embedding caches
+(runner/device_pipeline.py); over several GPUs it runs under ``torchrun``,
+one process per GPU (parallel/mesh.py), and rank 0 reports. ``--inf``,
+``--indiv``, ``--device-scoring`` and ``--multihost`` are accepted and exit
+with a message: they are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,20 +52,33 @@ def main() -> None:
                          "caches/stats/results key under '<model>-bf16'. "
                          "Scoring math stays float64 on host.")
     ap.add_argument("--seed", type=int, default=0, help="(for --inf; not ported yet)")
+    ap.add_argument("--device-pipeline", action="store_true",
+                    help="plain-score fast path for the speech family: embed and "
+                         "accumulate dataset Gaussians on the device without writing "
+                         "per-file embedding .npy caches; stats match the cached path "
+                         "to float32 accumulation. Several GPUs: run under torchrun, "
+                         "one process per GPU")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree for --device-pipeline: shard attention "
+                         "heads / FFN columns over tp processes; the rest form the dp "
+                         "axis. Must divide the number of processes")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="number of devices (processes) for --device-pipeline "
+                         "(default: all of the torchrun job; 1 without torchrun)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="clips per device step for --device-pipeline (default 16 x dp)")
     not_ported = {
         "inf": ap.add_argument("--inf", action="store_true", help="(not ported yet)"),
         "indiv": ap.add_argument("--indiv", action="store_true", help="(not ported yet)"),
         "device_scoring": ap.add_argument(
             "--device-scoring", action="store_true", help="(not ported yet)"),
-        "device_pipeline": ap.add_argument(
-            "--device-pipeline", action="store_true", help="(not ported yet)"),
         "multihost": ap.add_argument("--multihost", action="store_true", help="(not ported yet)"),
-        "tp": ap.add_argument("--tp", type=int, default=1, help="(not ported yet)"),
-        "devices": ap.add_argument("--devices", type=int, default=None, help="(not ported yet)"),
-        "batch": ap.add_argument("--batch", type=int, default=None, help="(not ported yet)"),
     }
     args = ap.parse_args()
 
+    if args.device_pipeline and (args.inf or args.indiv):
+        raise SystemExit("--device-pipeline supports plain scoring only "
+                         "(--inf/--indiv read the embedding cache)")
     for dest, action in not_ported.items():
         if getattr(args, dest) != action.default:
             raise SystemExit(
@@ -75,6 +91,12 @@ def main() -> None:
 
     model = models[args.model]
     baseline, eval_ = args.baseline, args.eval
+
+    if args.device_pipeline:
+        _device_pipeline(args, model, baseline, eval_)
+        return
+    if args.tp != 1 or args.devices is not None:
+        raise SystemExit("--tp/--devices require --device-pipeline")
 
     # 1. Cache embeddings for both datasets.
     for d in [baseline, eval_]:
@@ -90,6 +112,27 @@ def main() -> None:
     )
     score = fad.score(baseline, eval_)
     _report(args, model, baseline, eval_, score, None)
+
+
+def _device_pipeline(args, model, baseline, eval_) -> None:
+    import torch.distributed as dist
+
+    from ..parallel.mesh import make_mesh
+    from ..runner.device_pipeline import score_datasets_device
+
+    launched = not dist.is_initialized()
+    mesh = make_mesh(args.devices, tp=args.tp)
+    try:
+        log.info(f"device pipeline mesh: dp={mesh.dp} x tp={mesh.tp} on {mesh.device}")
+        try:
+            score = score_datasets_device(model, baseline, eval_, mesh=mesh, batch=args.batch)
+        except NotImplementedError as e:
+            raise SystemExit(f"{model.name}: {e}")
+        if mesh.rank == 0:
+            _report(args, model, baseline, eval_, score, None)
+    finally:
+        if launched and dist.is_initialized():  # make_mesh joined torchrun's group
+            dist.destroy_process_group()
 
 
 def _report(args, model, baseline, eval_, score, inf_r2) -> None:

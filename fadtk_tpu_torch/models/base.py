@@ -101,6 +101,14 @@ class EmbeddingModel(ABC):
         wav = wav_data / 32768.0
         return self.enforce_min_len(wav)
 
+    def load_wav_array(self, wav_data: np.ndarray) -> np.ndarray:
+        """In-memory twin of ``load_wav``: consume the int16 PCM that *would*
+        have been written to the convert cache (same content, no file). Used
+        by the device pipeline's in-memory convert (runner/convert.py).
+        Overrides must mirror their ``load_wav``."""
+        wav = np.asarray(wav_data, np.int16) / 32768.0
+        return self.enforce_min_len(wav)
+
     def enforce_min_len(self, audio: np.ndarray) -> np.ndarray:
         """Zero-pad audio shorter than ``min_len`` seconds, with a warning.
 

@@ -419,10 +419,43 @@ def speech_encoder_forward(
         frame_mask: (B, T_frames) validity mask.
     """
     cfg = model.cfg
-    b, t_samples = audio.shape
-    dev = audio.device
     if num_valid is None:
-        num_valid = torch.full((b,), t_samples, dtype=torch.int32, device=dev)
+        num_valid = torch.full(audio.shape[:1], audio.shape[1], dtype=torch.int32,
+                               device=audio.device)
+    x, frame_mask, frame_valid, key_bias, position_bias = encoder_inputs(model, audio, num_valid)
+
+    wanted = set(range(cfg.num_layers + 1)) if taps is None else set(taps)
+    collected: dict[int, torch.Tensor] = {}
+    if 0 in wanted:
+        collected[0] = x
+    n_run = max(wanted)
+    for i, p in enumerate(model.encoder["layers"][:n_run], start=1):
+        x = encoder_layer(cfg, p, x, key_bias, position_bias, frame_valid)
+        if i in wanted:
+            collected[i] = x
+
+    last = cfg.num_layers
+    if cfg.do_stable_layer_norm and last in collected:
+        collected[last] = _layer_norm(collected[last], model.encoder["layer_norm"],
+                                      cfg.layer_norm_eps)
+
+    order = sorted(collected) if taps is None else list(taps)
+    return torch.stack([collected[i] for i in order], dim=0), frame_mask
+
+
+def encoder_inputs(model: SpeechEncoder, audio: torch.Tensor, num_valid: torch.Tensor):
+    """The forward up to the first transformer layer, shared with the
+    tensor-parallel forward (``parallel/tp.py``): input normalisation, the
+    conv extractor, the feature projection, the positional conv and (post-norm)
+    the encoder layer norm.
+
+    Returns x (B, T_frames, H), frame_mask (B, T_frames), frame_valid (B,),
+    the additive key bias (B, 1, 1, T_frames) and, for WavLM, the (H, T, T)
+    relative position bias from layer 0's table (None otherwise).
+    """
+    cfg = model.cfg
+    t_samples = audio.shape[1]
+    dev = audio.device
     compute_dtype = model.feature_projection["projection"].weight.dtype
 
     if cfg.do_normalize:
@@ -464,20 +497,4 @@ def speech_encoder_forward(
         )
     else:
         position_bias = None
-
-    wanted = set(range(cfg.num_layers + 1)) if taps is None else set(taps)
-    collected: dict[int, torch.Tensor] = {}
-    if 0 in wanted:
-        collected[0] = x
-    n_run = max(wanted)
-    for i, p in enumerate(enc["layers"][:n_run], start=1):
-        x = encoder_layer(cfg, p, x, key_bias, position_bias, frame_valid)
-        if i in wanted:
-            collected[i] = x
-
-    last = cfg.num_layers
-    if cfg.do_stable_layer_norm and last in collected:
-        collected[last] = _layer_norm(collected[last], enc["layer_norm"], cfg.layer_norm_eps)
-
-    order = sorted(collected) if taps is None else list(taps)
-    return torch.stack([collected[i] for i in order], dim=0), frame_mask
+    return x, frame_mask, frame_valid, key_bias, position_bias

@@ -1,6 +1,7 @@
-"""Packed-heads flash attention: the hand-written Hopper kernel and its plain twin.
+"""Flash attention for the speech encoders: the hand-written Hopper kernel and
+its plain twins, in the JAX package's two layouts.
 
-``flash_attention_packed`` is the port of
+``flash_attention_packed`` (K1, and K1b with the bias) is the port of
 ``fadtk_tpu/ops/flash_attention.py::flash_attention_packed``: non-causal
 attention over q, k, v in the (B, T, H*D) layout the projection GEMMs write,
 with a per-batch prefix key mask ``n_valid`` (clamped to [1, T]), float32
@@ -8,19 +9,28 @@ logits / softmax state / accumulator, and the output in the input dtype.
 WavLM's factorized gated relative-position bias comes as two optional
 float32 operands, ``position_bias`` (H, T, T) and ``gate`` (B, T, H):
 ``s = q·k/√d + gate[b, t, h] · position_bias[h, t, s]`` before the key mask,
-without ever building the dense (B, H, T, T) bias. The kernel is CUDA C++ for
-sm_90a
+without ever building the dense (B, H, T, T) bias.
+
+``flash_attention`` (K2) is the port of
+``fadtk_tpu/ops/flash_attention.py::flash_attention``: the same function on
+head-major (B, H, T, D) tensors, with the gate (B, H, T), and the grouped
+form (``_kernel_grouped``, G heads per program) behind
+``FADTK_TPU_FLASH_GROUPED=1``. It takes any (batch, head, row) strides with a
+unit last dim, so the tensor-parallel path's head-split views of a packed
+projection go in without a copy.
+
+Both are one CUDA C++ source for sm_90a
 (``fadtk_tpu_torch/csrc/flash_attention_packed.cu``; its header says what
-bounds it and how it is laid out).
+bounds it and how the layouts are read). Routing is by the tensor's device,
+and only by it:
 
-Routing is by the tensor's device, and only by it:
-
-- CPU tensors go to ``flash_attention_packed_reference``, the plain torch twin
-  (same signature, keys masked at ``n_valid``, every row finite);
+- CPU tensors go to the plain torch twins, ``flash_attention_packed_reference``
+  and ``flash_attention_reference`` (same signatures, keys masked at
+  ``n_valid``, every row finite);
 - CUDA tensors launch the kernel, or raise. There is no fallback.
 
 The kernel is built at first use from the source in the repository into a
-shared library with a plain C entry point (``ops/build.py``), loaded with
+shared library with plain C entry points (``ops/build.py``), loaded with
 ctypes.
 """
 
@@ -70,6 +80,12 @@ def _library() -> ctypes.CDLL:
             fn = lib.fadtk_flash_attention_packed
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn = lib.fadtk_flash_attention_headmajor
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn = lib.fadtk_flash_attention_pick_group
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int] * 4
             _LIB = lib
         return _LIB
 
@@ -101,23 +117,48 @@ def flash_attention_packed_reference(
     if (position_bias is None) != (gate is None):
         raise ValueError("position_bias and gate come together")
     b, t, hd = q.shape
-    d = hd // num_heads
+
+    def heads(x):
+        return x.reshape(b, t, num_heads, hd // num_heads).transpose(1, 2)
+
+    out = flash_attention_reference(  # (B, H, T, D)
+        heads(q), heads(k), heads(v), n_valid, position_bias,
+        None if gate is None else gate.transpose(1, 2),
+    )
+    return out.transpose(1, 2).reshape(b, t, hd)
+
+
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    n_valid: torch.Tensor | None = None,
+    position_bias: torch.Tensor | None = None,
+    gate: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain torch twin of the head-major kernel (K2): the contract of
+    ``flash_attention`` (whose ``grouped`` changes only how the kernel is
+    launched), and the arithmetic of ``flash_attention_packed_reference``,
+    which is this function on the head-split views.
+
+    q, k, v (B, H, T, D) of any strides; ``gate`` (B, H, T).
+    """
+    if (position_bias is None) != (gate is None):
+        raise ValueError("position_bias and gate come together")
+    b, _, t, d = q.shape
     if n_valid is None:
         nv = torch.full((b,), t, dtype=torch.int64, device=q.device)
     else:
         nv = n_valid.to(device=q.device, dtype=torch.int64).clamp(1, t)
     key_live = torch.arange(t, device=q.device)[None, :] < nv[:, None]  # (B, T)
 
-    def heads(x):
-        return x.reshape(b, t, num_heads, d).transpose(1, 2).float()
-
-    logits = heads(q) @ heads(k).transpose(-1, -2) * (d ** -0.5)
+    logits = q.float() @ k.float().transpose(-1, -2) * (d ** -0.5)
     if position_bias is not None:
-        logits = logits + gate.float().transpose(1, 2)[..., None] * position_bias.float()[None]
+        logits = logits + gate.float()[..., None] * position_bias.float()[None]
     logits = logits.masked_fill(~key_live[:, None, None, :], _NEG)
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    out = (p.to(v.dtype).float() @ heads(v)) / p.sum(dim=-1, keepdim=True)  # (B, H, T, D)
-    return out.to(q.dtype).transpose(1, 2).reshape(b, t, hd)
+    out = (p.to(v.dtype).float() @ v.float()) / p.sum(dim=-1, keepdim=True)
+    return out.to(q.dtype)
 
 
 def flash_attention_packed(
@@ -195,9 +236,117 @@ def flash_attention_packed(
     return out
 
 
+def _row_aligned(x: torch.Tensor) -> bool:
+    """16-byte base pointer and (batch, head, row) strides, unit last dim:
+    the kernel loads each row 16 bytes a thread. Strides of size-1 dims are
+    never used."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(x.stride(i) * x.element_size() % 16 == 0
+                    for i in range(3) if x.shape[i] > 1))
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    n_valid: torch.Tensor | None = None,
+    position_bias: torch.Tensor | None = None,
+    gate: torch.Tensor | None = None,
+    *,
+    grouped: bool | None = None,
+) -> torch.Tensor:
+    """softmax(q kᵀ/√d [+ gate ⊙ position_bias]) v per (batch, head), K2.
+
+    q, k, v: (B, H, T, D), any (batch, head, row) strides with a unit last
+    dim; ``n_valid``: (B,) valid key counts (clamped to >= 1; None = all T);
+    ``position_bias`` (H, T, T) and ``gate`` (B, H, T): float32, given
+    together or not at all. Returns (B, H, T, D) in q's dtype, laid out like
+    q when q is dense (so a head-split view of a packed projection gives a
+    head-split view of a packed output, and the caller's merge back to
+    (B, T, H*D) is free). Rows t >= n_valid[b] are padding: finite, exact
+    zeros in fully padded 64-row tiles.
+
+    ``grouped`` (None: ``FADTK_TPU_FLASH_GROUPED=1`` decides, as in the JAX
+    package) runs G heads per CTA, G picked for the card
+    (``fadtk_flash_attention_pick_group``); without bias only, and the
+    per-head grid when no G > 1 fills the card.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (bf16 or
+    float32, head dim 64, 16-byte aligned rows) or raise.
+    """
+    if (position_bias is None) != (gate is None):
+        raise ValueError("flash_attention: position_bias and gate come together")
+    if grouped is None:
+        grouped = os.environ.get("FADTK_TPU_FLASH_GROUPED", "").strip() == "1"
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, n_valid, position_bias, gate)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: expected (B, H, T, D) tensors, got {tuple(q.shape)}")
+    b, h, t, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d}; the kernel takes D={HEAD_DIM} only")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_attention: dtype {q.dtype} (bf16 or float32 only)")
+    for name, x in (("k", k), ("v", v)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"flash_attention: {name} does not match q "
+                             f"({tuple(x.shape)} {x.dtype} {x.device})")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not _row_aligned(x):
+            raise ValueError(f"flash_attention: {name} needs a unit last stride and 16-byte "
+                             f"aligned rows, got strides {x.stride()}")
+    if n_valid is None:
+        nv = torch.full((b,), t, dtype=torch.int32, device=q.device)
+    else:
+        if n_valid.shape != (b,):
+            raise ValueError(f"n_valid must have shape ({b},), got {tuple(n_valid.shape)}")
+        nv = n_valid.to(device=q.device, dtype=torch.int32).contiguous()
+    bias_ptrs, gate_strides = (None, None), (0, 0, 0)
+    if position_bias is not None:
+        for name, x, shape in (("position_bias", position_bias, (h, t, t)),
+                               ("gate", gate, (b, h, t))):
+            if tuple(x.shape) != shape or x.dtype != torch.float32 or x.device != q.device:
+                raise ValueError(f"flash_attention: {name} must be float32 {shape} on "
+                                 f"{q.device}, got {x.dtype} {tuple(x.shape)} {x.device}")
+        if not position_bias.is_contiguous():
+            raise ValueError("flash_attention: position_bias must be contiguous")
+        bias_ptrs, gate_strides = (position_bias.data_ptr(), gate.data_ptr()), gate.stride()
+
+    lib = _library()
+    group = 1
+    if grouped and position_bias is None:
+        group = lib.fadtk_flash_attention_pick_group(b, t, h, _DTYPE_CODE[q.dtype])
+        if group < 1:
+            raise RuntimeError(f"flash_attention: picking the group failed, cudaError {-group}")
+    out = torch.empty_like(q)  # q's layout when q is dense, else contiguous
+    strides = (ctypes.c_longlong * 15)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *gate_strides
+    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.fadtk_flash_attention_headmajor(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), nv.data_ptr(), *bias_ptrs, out.data_ptr(),
+        strides, b, t, h, group, _DTYPE_CODE[q.dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed, cudaError {rc}")
+    if position_bias is not None:
+        flash_attention.bias_launches += 1
+    elif group > 1:
+        flash_attention.grouped_launches += 1
+    else:
+        flash_attention.launches += 1
+    return out
+
+
 # Kernel launches since the last reset, by form: ``launches`` counts the
-# no-bias kernel, ``bias_launches`` the factorized-bias one (``chip_smoke.py``
-# zeroes both and reads them around the main path to show the path went
-# through the kernels).
+# no-bias kernel, ``bias_launches`` the factorized-bias one, and for K2
+# ``grouped_launches`` the grouped grid (``chip_smoke.py`` zeroes them and
+# reads them around the main path to show the path went through the
+# kernels).
 flash_attention_packed.launches = 0
 flash_attention_packed.bias_launches = 0
+flash_attention.launches = 0
+flash_attention.bias_launches = 0
+flash_attention.grouped_launches = 0

@@ -54,6 +54,19 @@ def _shipped_stats_dirs() -> list[Path]:
     return dirs
 
 
+def convert_audio(f: PathLike, sr: int) -> np.ndarray:
+    """Decode, mean downmix to mono, Kaiser-resample to ``sr`` and quantize:
+    the int16 content of the convert cache's wav for ``f`` (parity:
+    reference fadtk/fad.py:145-160)."""
+    from ..audio.decode import decode_audio
+    from ..audio.wavio import float_to_int16
+    from ..dsp.resample import resample_kaiser
+
+    x, sr_orig = decode_audio(f)  # (channels, n) float32
+    mono = np.mean(x, axis=0)  # parity: fadtk/fad.py:150
+    return float_to_int16(resample_kaiser(mono, sr_orig, sr))
+
+
 class FrechetAudioDistance:
     def __init__(
         self,
@@ -84,14 +97,9 @@ class FrechetAudioDistance:
         new = get_convert_cache_path(self.ml.sr, f)
 
         if not new.exists():
-            from ..audio.decode import decode_audio
-            from ..audio.wavio import float_to_int16, write_wav_int16
-            from ..dsp.resample import resample_kaiser
+            from ..audio.wavio import write_wav_int16
 
-            x, sr_orig = decode_audio(f)  # (channels, n) float32
-            mono = np.mean(x, axis=0)  # parity: fadtk/fad.py:150
-            y = resample_kaiser(mono, sr_orig, self.ml.sr)
-            write_wav_int16(new, float_to_int16(y), self.ml.sr)
+            write_wav_int16(new, convert_audio(f, self.ml.sr), self.ml.sr)
 
         return self.ml.load_wav(new)
 

@@ -222,13 +222,19 @@ def test_newton_schulz_close_to_jax_and_eigh():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax blocked."""
+    """Every module of the port imports with jax blocked, the device
+    pipeline's (parallel.mesh, parallel.tp, runner.device_pipeline,
+    runner.convert, runner.resume) among them."""
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
         "import fadtk_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(fadtk_tpu_torch.__path__, 'fadtk_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
+        "want = {'fadtk_tpu_torch.parallel.mesh', 'fadtk_tpu_torch.parallel.tp',\n"
+        "        'fadtk_tpu_torch.runner.device_pipeline', 'fadtk_tpu_torch.runner.convert',\n"
+        "        'fadtk_tpu_torch.runner.resume'}\n"
+        "assert want <= set(mods), want - set(mods)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'fadtk_tpu.')) for k in sys.modules"
         " if sys.modules[k] is not None)\n"
         "print(len(mods))\n"

@@ -121,7 +121,9 @@ def test_port_cli_on_cpu_with_random_weights(name, bf16, tmp_path, monkeypatch):
     monkeypatch.setenv("FADTK_TPU_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("FADTK_TPU_RANDOM_WEIGHTS", "1")
     monkeypatch.setenv("FADTK_TPU_CHECKPOINTS", str(tmp_path / "none"))
-    monkeypatch.delenv("FADTK_TPU_BF16", raising=False)
+    # Set, not deleted: monkeypatch then undoes the "1" that main() writes
+    # for --bf16, which would otherwise leak into the worker's later tests.
+    monkeypatch.setenv("FADTK_TPU_BF16", "")
     monkeypatch.setattr(sys, "argv", ["fadtk", name, str(b), str(e), str(csv), "-w", "2",
                                       *(["--bf16"] if bf16 else [])])
     before = k3.fused_log_mel.launches
