@@ -77,15 +77,17 @@ Phases:
    and a checkpoint every 4 files. K1 must launch 12 times per device batch
    for w2v2-base bf16 and K2 12 times per device batch for wavlm-base-plus
    bf16 (its tensor-parallel step at tp=1), no kernel elsewhere; the frame
-   count must match the clips, the f32 statistics the cached path's
-   ``stats/<model>/`` (mu 1e-3, cov 5e-3) and the score the cached path's
-   (1e-3 relative); the pipeline's audio-s/s is printed beside the cached
-   path's embed-stage rate;
+   count must match the clips, the statistics the cached path's
+   ``stats/<model>/`` and the score the cached path's, in f32 and bf16
+   (``PIPE_TOL``); for w2v2-base f32 the gap is split into its sources
+   (``scripts/torch_pipeline_gap_probe.py``); the pipeline's audio-s/s is
+   printed beside the cached path's embed-stage rate;
 9. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -95,6 +97,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -123,6 +126,19 @@ K4_SHAPES = [(32, 240000), (64, 120000), (128, 30000), (256, 6000)]
 # and the dB value by 10 times that. The torch.stft chain (cuFFT) is held to
 # ten times these, as a check that it computes the same function.
 K3_ATOL = {"ln_offset": 1e-4, "log10_clamp": 1e-4, "db_clamp": 1e-3}
+# --device-pipeline vs the cached path on the same clips, per dataset. float32:
+# mu and cov absolute (tests/test_torch_device_pipeline.py's bounds), score
+# relative. The cached path's host statistics take each file's mean in
+# float16, as the reference does (np.mean of the float16 .npy), which moves mu
+# by up to half a float16 ulp (2.4e-4 at |mu| ~ 1; measured 2.5e-4) and cov
+# through the merge's delta term (1.9e-4); scores agreed within 4.9e-6.
+# bfloat16: the same clips through other kernels (the tp step sends WavLM to
+# K2, the cached path to K1b) that round p to bf16 at other running maxima.
+# Scores agreed within 4.9e-6 (w2v2-base) and 4.6e-6 (wavlm-base-plus)
+# relative, and the four-card bf16 probe within 1.9e-4 (mu) and 8.5e-4 (cov)
+# of the largest value: each bound is about ten times those.
+PIPE_TOL = {"float32": {"mu": 1e-3, "cov": 5e-3, "score": 1e-3},
+            "bfloat16": {"mu": 2e-3, "cov": 1e-2, "score": 5e-5}}
 # Roofline of one H100 SXM (NVIDIA data sheet; dense, at 700 W): memory rate
 # and peak rates by input type (bf16 on tensor cores, f32 on CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
@@ -666,16 +682,43 @@ def model_card_vs_cpu(torch, model_name: str, audio, knobs=("",)):
     return models["cuda"]
 
 
+RNN_COMPACTION = "not part of single contiguous chunk of memory"
+
+
+@contextlib.contextmanager
+def rnn_warnings(label: str, allowed: bool = False):
+    """Record every warning inside the block; unless ``allowed``, fail on
+    cuDNN's "RNN module weights are not part of single contiguous chunk of
+    memory" (an LSTM whose weights were not re-flattened after a cast,
+    compacted again at every call). Yields the list of those warnings."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        found: list[str] = []
+        yield found
+    found.extend(str(w.message) for w in seen if RNN_COMPACTION in str(w.message))
+    if found and not allowed:
+        raise AssertionError(f"{label}: {len(found)} LSTM weight compaction warnings")
+
+
 def module_forward_breakdown(torch, model, forward, shape: tuple, audio_s: float, unit: str,
-                            knobs=("",)) -> None:
+                            knobs=("",), lstm_ab: bool = False) -> None:
     """Forwards of ``model``'s module on a random input of ``shape`` (audio
     (B, channels, T), or vggish's (N, 96, 64) examples) in f32 and bf16, each
     with every knob value: median CUDA-event time, then one profiled forward
-    each."""
+    each. The bf16 module is cast as the model casts it (its LSTM weights
+    re-flattened), and a compaction warning fails the run; with ``lstm_ab``,
+    a bf16 module cast with a bare ``.to(bfloat16)`` (scattered LSTM weights)
+    runs first, for the before/after of the flattening."""
     import copy
 
+    from fadtk_tpu_torch.models.base import cast_module
+
     m32 = model.module
-    m16 = copy.deepcopy(m32).to(torch.bfloat16)
+    variants = [("f32", m32, False), ("bf16", cast_module(copy.deepcopy(m32), torch.bfloat16),
+                                      False)]
+    if lstm_ab:
+        variants.insert(1, ("bf16 LSTM not re-flattened",
+                            copy.deepcopy(m32).to(torch.bfloat16), True))
     g = torch.Generator(device="cuda").manual_seed(SEED)
     audio = torch.randn(shape, generator=g, device="cuda") * 0.1
 
@@ -683,16 +726,19 @@ def module_forward_breakdown(torch, model, forward, shape: tuple, audio_s: float
         with torch.inference_mode():
             return forward(module, audio)
 
-    for name, module in (("f32", m32), ("bf16", m16)):
+    for name, module, allowed in variants:
         for knob in knobs:
             os.environ["FADTK_TPU_FUSED_RESNET"] = knob
             label = f"{model.name} {name} B={shape[0]}" + (f" fused={knob}" if knob else "")
-            ms = cuda_ms(torch, lambda: run(module), runs=10)
-            print(f"{label}: forward {ms:.3f} ms = {audio_s / ms * 1e3:.1f} {unit}/s "
-                  f"({audio_s:g} {unit} per batch)", flush=True)
-            profile_forward(torch, label, lambda: run(module))
+            with rnn_warnings(label, allowed) as found:
+                ms = cuda_ms(torch, lambda: run(module), runs=10)
+                print(f"{label}: forward {ms:.3f} ms = {audio_s / ms * 1e3:.1f} {unit}/s "
+                      f"({audio_s:g} {unit} per batch)", flush=True)
+                profile_forward(torch, label, lambda: run(module))
+            if allowed:
+                print(f"{label}: {len(found)} LSTM weight compaction warnings", flush=True)
             os.environ.pop("FADTK_TPU_FUSED_RESNET")
-    del m16
+    del variants
 
 
 def whisper_forward_breakdown(torch, size: str, module=None, runs: int = 10) -> None:
@@ -821,10 +867,11 @@ def cli_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: b
                 *(["--bf16"] if bf16 else [])]
     os.environ.update(env or {})
     try:
-        reset_counts(kernels)
-        cli.main()
-        torch.cuda.synchronize()
-        launches = read_counts(kernels)
+        with rnn_warnings(f"[{key}]"):
+            reset_counts(kernels)
+            cli.main()
+            torch.cuda.synchronize()
+            launches = read_counts(kernels)
     finally:
         profiling.report = real_report
         os.environ.pop("FADTK_TPU_BF16", None)
@@ -997,18 +1044,21 @@ def pipeline_run(torch, kernels, work: Path, seconds: float, model_name: str, bf
                    for f in sorted((work / ds / "convert" / str(model.sr)).glob("*.wav"))]
         if len(lengths) != 16 or n != sum(path_shape(model, lengths)[0]):
             raise AssertionError(f"[pipeline {key}] {ds}: {n} frames for {len(lengths)} clips")
-        if not bf16:
-            mu_c = np.load(work / ds / "stats" / key / "mu.npy")
-            cov_c = np.load(work / ds / "stats" / key / "cov.npy")
-            d_mu, d_cov = np.abs(mu - mu_c).max(), np.abs(cov - cov_c).max()
-            print(f"[pipeline {key}] {ds}: n={n}; vs cached stats mu {d_mu:.3e} (1e-3), "
-                  f"cov {d_cov:.3e} (5e-3)", flush=True)
-            if not (d_mu <= 1e-3 and d_cov <= 5e-3):
-                raise AssertionError(f"[pipeline {key}] {ds}: stats differ from the cached path")
+        mu_c = np.load(work / ds / "stats" / key / "mu.npy")
+        cov_c = np.load(work / ds / "stats" / key / "cov.npy")
+        d_mu, d_cov = np.abs(mu - mu_c).max(), np.abs(cov - cov_c).max()
+        if bf16:  # bounds relative to the cached path's largest value
+            d_mu, d_cov = d_mu / np.abs(mu_c).max(), d_cov / np.abs(cov_c).max()
+        lim = PIPE_TOL["bfloat16" if bf16 else "float32"]
+        print(f"[pipeline {key}] {ds}: n={n}; vs cached stats mu {d_mu:.3e} ({lim['mu']:g}), "
+              f"cov {d_cov:.3e} ({lim['cov']:g})" + (" of the largest value" if bf16 else ""),
+              flush=True)
+        if not (d_mu <= lim["mu"] and d_cov <= lim["cov"]):
+            raise AssertionError(f"[pipeline {key}] {ds}: stats differ from the cached path")
     rel = abs(score - cached[key]["score"]) / abs(cached[key]["score"])
     print(f"[pipeline {key}] score {score} vs cached {cached[key]['score']}: relative "
-          f"{rel:.3e}", flush=True)
-    if not bf16 and not rel <= 1e-3:
+          f"{rel:.3e} ({lim['score']:g})", flush=True)
+    if not rel <= lim["score"]:
         raise AssertionError(f"[pipeline {key}] score differs from the cached path by {rel}")
     return {**launches, **counts, "rate": seconds / pipe_s}
 
@@ -1118,7 +1168,7 @@ def main() -> int:
                                   knobs=("0", "1"))
         phase("encodec-emb forward, batch 16 x 10 s: fused block off and on")
         module_forward_breakdown(torch, enc24, encodec_encode, (BATCH, 1, 240000), BATCH * 10.0,
-                                "audio-s", knobs=("0", "1"))
+                                "audio-s", knobs=("0", "1"), lstm_ab=True)
         del enc24
         phase("encodec-emb-48k f32: card vs cpu, 2.5 s stereo")
         model_card_vs_cpu(torch, "encodec-emb-48k",
@@ -1153,6 +1203,17 @@ def main() -> int:
         phase("device pipeline: CLI --device-pipeline w2v2-base, wavlm-base-plus f32 and --bf16, "
               "w2v2-base --batch 4 with checkpoints")
         pipeline = pipeline_runs(torch, (fa, fr, k3), work, cached, seconds)
+
+        phase("device pipeline: the w2v2-base f32 gap to the cached path, split by source")
+        sys.path.insert(0, str(REPO / "scripts"))
+        from torch_pipeline_gap_probe import format_gap, split_gap
+
+        from fadtk_tpu_torch.models.registry import get_model
+
+        w2v2 = get_model("w2v2-base")
+        for ds in ("baseline", "eval"):
+            print(format_gap(f"w2v2-base f32 {ds}", split_gap(w2v2, work / ds)), flush=True)
+        del w2v2
 
         if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
             raise AssertionError("jax was imported")

@@ -22,6 +22,42 @@ import torch
 from ..utils import PathLike, log
 
 
+def flatten_lstm_weights(module: torch.nn.Module) -> torch.nn.Module:
+    """Lay every ``nn.LSTM``'s weights of ``module`` out as one contiguous
+    cuDNN buffer; call after any ``.to(dtype)`` or ``.to(device)``.
+
+    ``nn.LSTM.flatten_parameters`` skips bfloat16 weights (its
+    ``cudnn.is_acceptable`` check lists float16/32/64 only) although cuDNN's
+    RNN runs them; left scattered, every forward warns "RNN module weights
+    are not part of single contiguous chunk of memory" and copies them into a
+    new buffer. For bf16 this does what ``flatten_parameters`` does for the
+    other types. A no-op off the card."""
+    for m in module.modules():
+        if not isinstance(m, torch.nn.LSTM):
+            continue
+        m.flatten_parameters()
+        w = m._flat_weights
+        if not (w and w[0].is_cuda and w[0].dtype == torch.bfloat16
+                and torch.backends.cudnn.enabled and torch.backends.cudnn.is_available()
+                and torch._use_cudnn_rnn_flatten_weight()):
+            continue
+        if len({p.data_ptr() for p in w}) != len(w) or m.proj_size:
+            continue
+        import torch.backends.cudnn.rnn as cudnn_rnn
+
+        with torch.cuda.device_of(w[0]), torch.no_grad():
+            torch._cudnn_rnn_flatten_weight(
+                w, 4 if m.bias else 2, m.input_size, cudnn_rnn.get_cudnn_mode(m.mode),
+                m.hidden_size, m.proj_size, m.num_layers, m.batch_first,
+                bool(m.bidirectional))
+    return module
+
+
+def cast_module(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """``module.to(dtype)`` with its LSTM weights re-flattened."""
+    return flatten_lstm_weights(module.to(dtype))
+
+
 class EmbeddingModel(ABC):
     """One embedding model variant (one registry name)."""
 
@@ -79,7 +115,7 @@ class EmbeddingModel(ABC):
         self.load_model()
         self.module.eval()
         if self._bf16_active:
-            self.module.to(torch.bfloat16)  # compute dtype follows the weights
+            cast_module(self.module, torch.bfloat16)  # compute dtype follows the weights
             log.info(f"{self.name}: bf16 throughput mode (weights cast to bfloat16)")
         self.loaded = True
 

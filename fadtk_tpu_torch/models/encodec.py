@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..utils import log, resolve_device
-from .base import EmbeddingModel
+from .base import EmbeddingModel, flatten_lstm_weights
 from .encodec_impl import (
     CONFIG_24K,
     CONFIG_48K,
@@ -78,7 +78,8 @@ class EncodecEmbModel(EmbeddingModel):
             raise MissingWeightsError(
                 self.weights_name(), f"HF id facebook/encodec_{self.variant}hz"
             )
-        self.module = module.to(self.device)
+        # the LSTM's cuDNN weight buffer is laid out for this device
+        self.module = flatten_lstm_weights(module.to(self.device))
 
     def load_wav(self, wav_file) -> np.ndarray:
         """Parity: fadtk/model_loader.py:165-176 — channel conversion (mono is

@@ -111,6 +111,26 @@ def test_stats_match_cached_path(data, batch):
     _no_caches(data["base"])
 
 
+def test_stats_gap_is_the_cached_paths_float16_means(data):
+    """The split of scripts/torch_pipeline_gap_probe.py at tiny width: the
+    pipeline's frames equal the cached path's before and after the float16
+    cast, its float32 accumulation is within float32 error of float64
+    statistics of those frames, and what is left of the gap is the cached
+    path's float16 per-file means (the reference's ``np.mean`` of a float16
+    .npy), which the pipeline does not reproduce."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    from torch_pipeline_gap_probe import split_gap
+
+    g = split_gap(data["model"], data["base"], batch=2)
+    assert g["n"] == data["cached"][2]
+    assert g["forward_rel"] <= 1e-6 and g["f16_flips"] <= 1e-4 * g["f16_values"]
+    assert g["accum_mu"] <= 1e-6 and g["accum_cov"] <= 1e-5
+    assert g["exact_mu"] <= 1e-6 and g["exact_cov"] <= 1e-5
+    assert g["cached_host_mu"] > 10 * g["exact_mu"]
+    assert g["total_mu"] <= g["cached_host_mu"] + g["exact_mu"]
+    _no_caches(data["base"])
+
+
 WORKER = r"""
 import sys
 from pathlib import Path
