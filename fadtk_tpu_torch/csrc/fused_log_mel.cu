@@ -16,34 +16,50 @@
 // frames[b * bs + n * fs + w]. For Whisper that is the reflect-padded
 // signal itself (fs = hop = 160, bs = 480400), so the (N, W) frame tensor,
 // 2.5x the signal, is never materialised; the Pallas contract, a contiguous
-// (N, W) tensor, is fs = W. W, F and M are taken as they are (W = 400,
-// F = 201, M = 80 for Whisper), not padded to lane multiples: ragged edges
-// are masked with zeros on load.
+// (N, W) tensor, is fs = W.
 //
-// What bounds it. At Whisper's B = 16 (N = 48000 frames) the work is
-// 2 N W 2F + 2 N F M = 16.98 GFLOP against ~46.8 MB of signal, bases and
-// output: 363 FLOP per byte, far above the card's 20 for float32 on the CUDA
-// cores (67 TFLOP/s against 3.35 TB/s), so the bound is the arithmetic,
-// 0.253 ms. The (N, F) power spectrum (38.6 MB at Whisper's shape) is the
-// traffic the Pallas kernel existed to save; here it never leaves the SM.
+// The wrapper (ops/fused_log_mel.py) hands the bases once per base tensor
+// in a cached layout: (2, Kp, Fp), the re and im rows 0..K-1 with rows
+// padded to Kp = 16 k and columns to Fp = 128 c with zeros, so every copy of
+// a slice is 16 bytes, and the band [lo_m, hi_m) of nonzero rows of every
+// mel column.
 //
-// Design (a simple form; wgmma-free, CUDA cores only): one block of 256
-// threads per (64-frame tile, clip). A loop over frequency chunks of 64:
+// The even/odd fold. Where the bases are those of a periodic window with
+// W = n_fft (Whisper W = 400, CLAP W = 1024), dre[W - n] = dre[n] and
+// dim[W - n] = -dim[n], so with h = W / 2
 //
-// 1. the DFT products for the tile and chunk, a (64 x W) . (W x 2*64)
-//    product: 32-sample slices of the frames and of both bases are staged in
-//    shared memory, and each thread keeps 4 frames x 4 frequencies of re
-//    and of im in registers. The slices are double-buffered: cp.async copies
-//    slice s+1 (zero-filling past N, W and F) while slice s is multiplied,
-//    so the L2 latency of the staging overlaps the FMAs;
-// 2. the power, re^2 + im^2, goes to shared memory (64 x 64), beside the
-//    chunk's 64 mel rows;
-// 3. the mel product accumulates into a (64 x M) register tile, 4 frames x
-//    ceil(M/16) mel columns per thread, across all chunks.
+//   re = x[0] dre[0] + x[h] dre[h] + sum_{n=1}^{h-1} (x[n] + x[W-n]) dre[n]
+//   im = x[0] dim[0] + x[h] dim[h] + sum_{n=1}^{h-1} (x[n] - x[W-n]) dim[n]
 //
-// After the last chunk each thread applies the log and writes its values
-// once. Bases (707 KB at Whisper's shape) are read by every block through
-// L2; frames are re-read once per frequency chunk, from L2.
+// a product of depth K = h + 1 instead of W: half the DFT arithmetic. The
+// wrapper decides (to float32 accuracy) whether the bases fold; VGGish's
+// (a 400-sample window in a 512-point DFT) do not, and run the unfolded
+// template (K = W, one operand for both products).
+//
+// What bounds it. At Whisper's B = 16 (N = 48000 frames) the folded DFT is
+// 2 N F W = 7.72 GFLOP and the banded mel product 2 N nnz(mel) = 0.04
+// GFLOP, against ~31 MB of signal, bases and output: bound by the
+// arithmetic at the f32 rate (0.116 ms). The (N, F) power spectrum never
+// leaves the SM.
+//
+// Design: one block of 256 threads per (128-frame tile, clip), one block per
+// SM (up to 255 registers a thread). A loop over frequency chunks of 128
+// columns, computing only the 32-column groups below F (224 of Whisper's
+// 201 columns, not 256); inside a chunk, a loop over slices of 16 folded
+// samples, double-buffered, one barrier per slice:
+//
+// 1. each thread loads 8 frames' samples x[j], x[W - j] of the next slice
+//    into registers and the next slice's 16 x 128 rows of both bases go to
+//    shared memory by cp.async, while this slice is multiplied; then the
+//    thread folds its samples into a = lo + hi, b = lo - hi (frame-major);
+// 2. each thread keeps 8 frames x 8 frequencies of re and of im in
+//    registers (128 accumulators); per sample it reads its 8 a and 8 b
+//    (four 16-byte loads, broadcast over the 16 threads of a frame group)
+//    and four float2 of each base row: 12 shared loads for 128 FMAs;
+// 3. after the chunk's last slice the power goes to shared memory (over the
+//    slice buffers) and the chunk's part of the mel product is added to a
+//    (M x 128) shared tile, each mel column over its band rows only;
+// 4. after the last chunk, the log of the tile is written once.
 
 #include <cuda_runtime.h>
 
@@ -52,11 +68,19 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TN = 64;      // frames per block
-constexpr int FC = 64;      // frequencies per chunk
-constexpr int KC = 32;      // window samples per staged slice
-constexpr int PS = FC + 4;  // power row stride in floats (rows stay 16-byte aligned)
-constexpr int SLICE = TN * KC + 2 * KC * FC;  // one staged slice: frames, dre, dim
+constexpr int TN = 128;     // frames per block: 16 frame groups of 8
+constexpr int FC = 128;     // frequency columns per chunk: 4 groups of 32
+constexpr int KC = 16;      // folded samples per slice
+constexpr int TNP = TN + 4;  // a / b / power row stride (rows stay 16-byte aligned)
+constexpr int OS = TN + 1;   // mel tile row stride (conflict-free both ways)
+// Shared memory, in floats: the folded a and b (2 buffers x KC x TNP each)
+// and the base rows (2 buffers x re, im x KC x FC) of a slice, with the power
+// of a chunk (FC x TNP) over them once the chunk's products are done; then
+// the mel bands (2 x M ints) and the (M x OS) mel tile.
+constexpr int AB = 2 * KC * TNP;   // folded a and b of one slice
+constexpr int BASE = 2 * KC * FC;  // re and im base rows of one slice
+constexpr int SLICE_AREA = 2 * AB + 2 * BASE;
+constexpr int REGION = SLICE_AREA > FC * TNP ? SLICE_AREA : FC * TNP;
 
 template <int MODE>
 __device__ __forceinline__ float log_epilogue(float v, float offset) {
@@ -65,217 +89,244 @@ __device__ __forceinline__ float log_epilogue(float v, float offset) {
   return 10.f * log10f(fmaxf(v, 1e-10f));
 }
 
-// 4-byte asynchronous copy global -> shared; copies zeros when !ok (src is
-// then only a valid address, not read).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+// 16-byte asynchronous copy global -> shared, through L2 only.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr), "l"(src),
-               "r"(ok ? 4 : 0));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+// One slice's products: re/im[r][c] += a[r] * B[c] for the thread's 8 frames
+// and its JN groups of 2 columns (JN = 4 in a full chunk, fewer in a last
+// chunk that ends within its first 32 JN columns).
+template <bool FOLD, int JN>
+__device__ __forceinline__ void slice_products(const float* as, const float* bs, const float* bre,
+                                               const float* bim, int tx, int ty,
+                                               float (&re)[8][8], float (&im)[8][8]) {
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(as + k * TNP + 8 * ty);
+    const float4 a1 = *reinterpret_cast<const float4*>(as + k * TNP + 8 * ty + 4);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float bv[8];
+    if (FOLD) {
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * TNP + 8 * ty);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + k * TNP + 8 * ty + 4);
+      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+    } else {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) bv[r] = av[r];
+    }
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const float2 wr = *reinterpret_cast<const float2*>(bre + k * FC + 2 * tx + 32 * j);
+      const float2 wi = *reinterpret_cast<const float2*>(bim + k * FC + 2 * tx + 32 * j);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        re[r][2 * j] = fmaf(av[r], wr.x, re[r][2 * j]);
+        re[r][2 * j + 1] = fmaf(av[r], wr.y, re[r][2 * j + 1]);
+        im[r][2 * j] = fmaf(bv[r], wi.x, im[r][2 * j]);
+        im[r][2 * j + 1] = fmaf(bv[r], wi.y, im[r][2 * j + 1]);
+      }
+    }
+  }
 }
 
-template <int MPT>
-constexpr size_t smem_bytes() {
-  // two staged slices, power tile, mel rows
-  return sizeof(float) * (size_t)(2 * SLICE + TN * PS + FC * 16 * MPT);
-}
-
-template <int MODE, int MPT>
-__global__ void __launch_bounds__(THREADS)
-    fused_log_mel_kernel(const float* __restrict__ frames, long long bs, long long fs, int N,
-                         int W, const float* __restrict__ dre, const float* __restrict__ dim,
-                         int F, const float* __restrict__ mel, int M, float* __restrict__ out,
-                         float offset) {
-  constexpr int MP = 16 * MPT;  // mel columns held per block (>= M)
+template <int MODE, bool FOLD>
+__global__ void __launch_bounds__(THREADS, 1)
+    fused_log_mel_kernel(const float* __restrict__ frames, long long bs_, long long fs, int N,
+                         int W, const float* __restrict__ bases, int Kp, int Fp, int F,
+                         const float* __restrict__ mel, const int* __restrict__ band, int M,
+                         float* __restrict__ out, float offset) {
   extern __shared__ __align__(16) float smem[];
-  // slice buffer b at smem + b * SLICE: TN x KC frames[n0 + r][k0 + k], then
-  // KC x FC dre[k0 + k][f0 + f], then KC x FC dim[k0 + k][f0 + f]
-  float* ps = smem + 2 * SLICE;  // TN x PS: power of the chunk
-  float* ms = ps + TN * PS;      // FC x MP: mel[f0 + f][m]
+  float* ab = smem;                    // [buf][a, b][KC][TNP]: a = lo (+ hi), b = lo - hi
+  float* bsm = ab + 2 * AB;            // [buf][re, im][KC][FC]
+  float* ps = smem;                    // [FC][TNP] power of a chunk (over the above)
+  int* bnd = reinterpret_cast<int*>(smem + REGION);  // [lo, hi][M]
+  float* ms = smem + REGION + 2 * M;   // [M][OS] mel tile
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int n0 = blockIdx.x * TN;
-  const float* fb = frames + (long long)blockIdx.y * bs;
-  const int nk = (W + KC - 1) / KC;                 // slices per chunk
-  const int total = nk * ((F + FC - 1) / FC);       // slices in all
+  const int h = W / 2;
+  const int nslices = Kp / KC;
+  const int nchunks = (F + FC - 1) / FC;
+  const bool live = n0 + 16 * (tid / 32) < N;  // this warp has a frame below N
+  const float* bre_g = bases;
+  const float* bim_g = bases + (size_t)Kp * Fp;
 
-  // Stage slice s (chunk s / nk, samples (s % nk) * KC ..) into buffer buf.
-  auto stage = [&](int s, int buf) {
-    const int f0 = (s / nk) * FC, k0 = (s % nk) * KC;
-    float* as = smem + buf * SLICE;
-    float* bre = as + TN * KC;
-    float* bim = bre + KC * FC;
-    for (int i = tid; i < TN * KC; i += THREADS) {
-      const int r = i / KC, k = i % KC;
-      const int n = n0 + r, smp = k0 + k;
-      const bool ok = n < N && smp < W;
-      cp_async4(as + i, ok ? fb + (long long)n * fs + smp : fb, ok);
+  for (int i = tid; i < M * OS; i += THREADS) ms[i] = 0.f;
+  for (int i = tid; i < 2 * M; i += THREADS) bnd[i] = __ldg(band + i);
+
+  // The fold: this thread reads sample j = s * KC + jj of frames r0 + 16 q
+  // (q < 8), and x[W - j] where the bases fold, into registers a slice
+  // ahead; then stores a = lo + hi and b = lo - hi. Rows 0 and h take x[j]
+  // alone; rows past h have zero bases. Zeros past N and past the frame.
+  const int jj = tid % KC, r0 = tid / KC;
+  const float* xr = frames + (long long)blockIdx.y * bs_ + (long long)(n0 + r0) * fs;
+  float xl[8], xh[8];
+  auto load = [&](int s) {
+    const int j = s * KC + jj;
+    const bool ok_lo = j < W, ok_hi = FOLD && j >= 1 && j < h;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const bool in = n0 + r0 + 16 * q < N;
+      const float* xf = xr + (long long)(16 * q) * fs;
+      xl[q] = in && ok_lo ? __ldg(xf + j) : 0.f;
+      xh[q] = in && ok_hi ? __ldg(xf + (W - j)) : 0.f;
     }
-    for (int i = tid; i < KC * FC; i += THREADS) {
-      const int k = i / FC, f = i % FC;
-      const int smp = k0 + k, fr = f0 + f;
-      const bool ok = smp < W && fr < F;
-      const size_t off = ok ? (size_t)smp * F + fr : 0;
-      cp_async4(bre + i, dre + off, ok);
-      cp_async4(bim + i, dim + off, ok);
+  };
+  auto fold_store = [&](int buf) {
+    float* a = ab + buf * AB;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      a[jj * TNP + r0 + 16 * q] = xl[q] + xh[q];
+      if (FOLD) a[KC * TNP + jj * TNP + r0 + 16 * q] = xl[q] - xh[q];
+    }
+  };
+  // Slice s of chunk c of both bases into buffer buf, 16 bytes a copy.
+  auto stage_bases = [&](int s, int c, int buf) {
+    float* b = bsm + buf * BASE;
+    const int j0 = s * KC, f0 = c * FC;
+    for (int i = tid; i < 2 * KC * FC / 4; i += THREADS) {
+      const int mat = i / (KC * FC / 4), rem = i % (KC * FC / 4);
+      const int k = rem / (FC / 4), c4 = rem % (FC / 4);
+      const float* src = (mat ? bim_g : bre_g) + (size_t)(j0 + k) * Fp + f0 + 4 * c4;
+      cp_async16(b + mat * KC * FC + k * FC + 4 * c4, src);
     }
     cp_async_commit();
   };
 
-  float acc[4][MPT];
+  for (int c = 0; c < nchunks; ++c) {
+    const int f0 = c * FC;
+    const int jn = min(4, (F - f0 + 31) / 32);  // 32-column groups below F
+    float re[8][8], im[8][8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int j = 0; j < MPT; ++j) acc[r][j] = 0.f;
-  float re[4][4], im[4][4];
+      for (int q = 0; q < 8; ++q) re[r][q] = im[r][q] = 0.f;
 
-  stage(0, 0);
-  for (int s = 0; s < total; ++s) {
-    if (s + 1 < total) {
-      stage(s + 1, (s + 1) & 1);  // its buffer was last read before the previous barrier
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* as = smem + (s & 1) * SLICE;
-    const float* bre = as + TN * KC;
-    const float* bim = bre + KC * FC;
-    const int kslice = s % nk;
-
-    // 1. re, im for frames 4ty..4ty+3 and frequencies f0 + 4tx..4tx+3.
-    if (kslice == 0) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) re[r][c] = im[r][c] = 0.f;
-    }
-#pragma unroll 2
-    for (int kk = 0; kk < KC; kk += 4) {
-      float a[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 v = *reinterpret_cast<const float4*>(as + (4 * ty + r) * KC + kk);
-        a[r][0] = v.x;
-        a[r][1] = v.y;
-        a[r][2] = v.z;
-        a[r][3] = v.w;
+    load(0);
+    fold_store(0);
+    stage_bases(0, c, 0);
+    for (int s = 0; s < nslices; ++s) {
+      cp_async_wait_all();
+      __syncthreads();  // slice s visible; every thread is done with slice s - 1
+      const bool next = s + 1 < nslices;
+      if (next) {
+        stage_bases(s + 1, c, (s + 1) & 1);
+        load(s + 1);
       }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float4 br = *reinterpret_cast<const float4*>(bre + (kk + k) * FC + 4 * tx);
-        const float4 bi = *reinterpret_cast<const float4*>(bim + (kk + k) * FC + 4 * tx);
-        const float brv[4] = {br.x, br.y, br.z, br.w};
-        const float biv[4] = {bi.x, bi.y, bi.z, bi.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            re[r][c] = fmaf(a[r][k], brv[c], re[r][c]);
-            im[r][c] = fmaf(a[r][k], biv[c], im[r][c]);
-          }
-      }
-    }
-
-    if (kslice == nk - 1) {
-      // 2. The power to shared memory (columns past F are zeros: their bases
-      //    were), and the chunk's mel rows (zeros past F and past M).
-      const int f0 = (s / nk) * FC;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float4 p;
-        p.x = fmaf(re[r][0], re[r][0], im[r][0] * im[r][0]);
-        p.y = fmaf(re[r][1], re[r][1], im[r][1] * im[r][1]);
-        p.z = fmaf(re[r][2], re[r][2], im[r][2] * im[r][2]);
-        p.w = fmaf(re[r][3], re[r][3], im[r][3] * im[r][3]);
-        *reinterpret_cast<float4*>(ps + (4 * ty + r) * PS + 4 * tx) = p;
-      }
-      for (int i = tid; i < FC * MP; i += THREADS) {
-        const int f = i / MP, m = i % MP;
-        const int fr = f0 + f;
-        ms[i] = (fr < F && m < M) ? __ldg(mel + (size_t)fr * M + m) : 0.f;
-      }
-      __syncthreads();
-
-      // 3. acc[r][j] += sum_f p[4ty + r][f] * mel[f0 + f][tx + 16 j].
-#pragma unroll 4
-      for (int f = 0; f < FC; ++f) {
-        float p[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) p[r] = ps[(4 * ty + r) * PS + f];
-#pragma unroll
-        for (int j = 0; j < MPT; ++j) {
-          const float mv = ms[f * MP + tx + 16 * j];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[r][j] = fmaf(p[r], mv, acc[r][j]);
+      if (live) {
+        const float* a = ab + (s & 1) * AB;
+        const float* b = bsm + (s & 1) * BASE;
+        switch (jn) {
+          case 4: slice_products<FOLD, 4>(a, a + KC * TNP, b, b + KC * FC, tx, ty, re, im); break;
+          case 3: slice_products<FOLD, 3>(a, a + KC * TNP, b, b + KC * FC, tx, ty, re, im); break;
+          case 2: slice_products<FOLD, 2>(a, a + KC * TNP, b, b + KC * FC, tx, ty, re, im); break;
+          default: slice_products<FOLD, 1>(a, a + KC * TNP, b, b + KC * FC, tx, ty, re, im);
         }
       }
+      if (next) fold_store((s + 1) & 1);
+    }
+    __syncthreads();  // the slice buffers become the power tile
+
+    // The chunk's power, frame-major: ps[f - f0][frame].
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= jn) break;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int fl = 2 * tx + 32 * j + q;
+        float p[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float x = re[r][2 * j + q], y = im[r][2 * j + q];
+          p[r] = fmaf(x, x, y * y);
+        }
+        *reinterpret_cast<float4*>(ps + fl * TNP + 8 * ty) = make_float4(p[0], p[1], p[2], p[3]);
+        *reinterpret_cast<float4*>(ps + fl * TNP + 8 * ty + 4) =
+            make_float4(p[4], p[5], p[6], p[7]);
+      }
     }
     __syncthreads();
+    {
+      // ms[m][n] += the chunk's band rows of mel column m.
+      const int n = tid % TN;
+      const int f1 = min(f0 + FC, F);
+      for (int m = tid / TN; m < M; m += THREADS / TN) {
+        const int lo = max(bnd[m], f0), hi = min(bnd[M + m], f1);
+        if (lo >= hi) continue;
+        float acc = ms[m * OS + n];
+#pragma unroll 4
+        for (int f = lo; f < hi; ++f)
+          acc = fmaf(ps[(f - f0) * TNP + n], __ldg(mel + (size_t)f * M + m), acc);
+        ms[m * OS + n] = acc;
+      }
+    }
+    __syncthreads();  // the power tile becomes the slice buffers again
   }
 
   float* ob = out + (size_t)blockIdx.y * N * M;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int n = n0 + 4 * ty + r;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < MPT; ++j) {
-      const int m = tx + 16 * j;
-      if (m < M) ob[(size_t)n * M + m] = log_epilogue<MODE>(acc[r][j], offset);
-    }
+  for (int i = tid; i < TN * M; i += THREADS) {
+    const int r = i / M, m = i % M, n = n0 + r;
+    if (n < N) ob[(size_t)n * M + m] = log_epilogue<MODE>(ms[m * OS + r], offset);
   }
 }
 
-template <int MODE, int MPT>
+size_t smem_bytes(int M) { return sizeof(float) * (size_t)(REGION + 2 * M + M * OS); }
+
+template <int MODE, bool FOLD>
 cudaError_t launch(const float* frames, long long bs, long long fs, int B, int N, int W,
-                   const float* dre, const float* dim, int F, const float* mel, int M, float* out,
-                   float offset, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<MPT>();
-  cudaError_t err = cudaFuncSetAttribute(fused_log_mel_kernel<MODE, MPT>,
+                   const float* bases, int Kp, int Fp, int F, const float* mel, const int* band,
+                   int M, float* out, float offset, cudaStream_t stream) {
+  const size_t smem = smem_bytes(M);
+  cudaError_t err = cudaFuncSetAttribute(fused_log_mel_kernel<MODE, FOLD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TN - 1) / TN, B);
-  fused_log_mel_kernel<MODE, MPT><<<grid, THREADS, smem, stream>>>(
-      frames, bs, fs, N, W, dre, dim, F, mel, M, out, offset);
+  fused_log_mel_kernel<MODE, FOLD><<<grid, THREADS, smem, stream>>>(
+      frames, bs, fs, N, W, bases, Kp, Fp, F, mel, band, M, out, offset);
   return cudaGetLastError();
 }
 
 template <int MODE>
-cudaError_t dispatch(const float* frames, long long bs, long long fs, int B, int N, int W,
-                     const float* dre, const float* dim, int F, const float* mel, int M,
-                     float* out, float offset, cudaStream_t s) {
-  // mel columns per thread: 4 (M <= 64: VGGish, CLAP), 5 (M <= 80: Whisper), 8
-  if (M <= 64) return launch<MODE, 4>(frames, bs, fs, B, N, W, dre, dim, F, mel, M, out, offset, s);
-  if (M <= 80) return launch<MODE, 5>(frames, bs, fs, B, N, W, dre, dim, F, mel, M, out, offset, s);
-  return launch<MODE, 8>(frames, bs, fs, B, N, W, dre, dim, F, mel, M, out, offset, s);
+cudaError_t dispatch(int fold, const float* frames, long long bs, long long fs, int B, int N,
+                     int W, const float* bases, int Kp, int Fp, int F, const float* mel,
+                     const int* band, int M, float* out, float offset, cudaStream_t s) {
+  if (fold)
+    return launch<MODE, true>(frames, bs, fs, B, N, W, bases, Kp, Fp, F, mel, band, M, out,
+                              offset, s);
+  return launch<MODE, false>(frames, bs, fs, B, N, W, bases, Kp, Fp, F, mel, band, M, out, offset,
+                             s);
 }
 
 }  // namespace
 
 // frames: float32, element (b, n, w) at frames[b * bs + n * fs + w];
-// dre, dim (W, F), mel (F, M) contiguous float32; out (B, N, M) contiguous
-// float32. mode: 0 ln_offset, 1 log10_clamp, 2 db_clamp. 1 <= M <= 128,
-// 1 <= B <= 65535. Launches on `stream`, does not synchronise; returns the
-// cudaError_t of the launch.
+// bases (2, Kp, Fp) float32: the re and im rows 0..K-1 of the bases (K =
+// W/2 + 1 when fold, W otherwise), zero-padded, Kp % 16 == 0, Fp % 128 == 0,
+// Fp >= F; mel (F, M) contiguous float32; band (2, M) int32: the first and
+// one past the last nonzero row of each mel column; out (B, N, M)
+// contiguous float32. mode: 0 ln_offset, 1 log10_clamp, 2 db_clamp.
+// 1 <= M <= 128, 1 <= B <= 65535, W even when fold. Launches on `stream`,
+// does not synchronise; returns the cudaError_t of the launch.
 extern "C" int fadtk_fused_log_mel(const float* frames, long long bs, long long fs, int B, int N,
-                                   int W, const float* dre, const float* dim, int F,
-                                   const float* mel, int M, float* out, int mode, float offset,
-                                   void* stream) {
-  if (B <= 0 || B > 65535 || N <= 0 || W <= 0 || F <= 0 || M <= 0 || M > 128)
+                                   int W, int fold, const float* bases, int Kp, int Fp, int F,
+                                   const float* mel, const int* band, int M, float* out, int mode,
+                                   float offset, void* stream) {
+  const int K = fold ? W / 2 + 1 : W;
+  if (B <= 0 || B > 65535 || N <= 0 || W <= 0 || F <= 0 || M <= 0 || M > 128 ||
+      (fold && W % 2) || Kp % KC || Kp < K || Fp % FC || Fp < F)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: return (int)dispatch<0>(frames, bs, fs, B, N, W, dre, dim, F, mel, M, out, offset, s);
-    case 1: return (int)dispatch<1>(frames, bs, fs, B, N, W, dre, dim, F, mel, M, out, offset, s);
-    case 2: return (int)dispatch<2>(frames, bs, fs, B, N, W, dre, dim, F, mel, M, out, offset, s);
+    case 0: return (int)dispatch<0>(fold, frames, bs, fs, B, N, W, bases, Kp, Fp, F, mel, band, M, out, offset, s);
+    case 1: return (int)dispatch<1>(fold, frames, bs, fs, B, N, W, bases, Kp, Fp, F, mel, band, M, out, offset, s);
+    case 2: return (int)dispatch<2>(fold, frames, bs, fs, B, N, W, bases, Kp, Fp, F, mel, band, M, out, offset, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

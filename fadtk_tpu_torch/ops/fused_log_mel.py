@@ -18,6 +18,16 @@ frame and batch strides, so a strided ``unfold`` view of a padded signal
 and how it is laid out), built at first use (``ops/build.py``) and loaded
 with ctypes.
 
+The kernel reads the bases in a layout the wrapper builds once per base
+tensor and caches (``kernel_layout``): where the bases are those of a
+periodic window with W = n_fft (Whisper, CLAP), ``dre[W - n] = dre[n]`` and
+``dim[W - n] = -dim[n]``, and the kernel multiplies the even/odd fold of each
+frame by rows 0..W/2 only, half the DFT arithmetic
+(``fused_log_mel_folded_reference`` is that formulation in plain torch);
+other bases (VGGish: a 400-sample window in a 512-point DFT) keep all W rows.
+The layout also holds each mel column's band of nonzero rows, the only rows
+the kernel's mel product visits.
+
 Routing is by the tensor's device, and only by it:
 
 - CPU tensors go to ``fused_log_mel_reference``, the plain torch twin;
@@ -30,8 +40,10 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import build
 
@@ -56,9 +68,9 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,  # frames, strides
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, W
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # dft_re, dft_im, F
-                ctypes.c_void_p, ctypes.c_int,  # mel, M
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, W, fold
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bases, Kp, Fp, F
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # mel, band, M
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_float,  # out, mode, log_offset
                 ctypes.c_void_p,  # stream
             ]
@@ -90,6 +102,96 @@ def fused_log_mel_reference(
     materialised)."""
     re = frames @ dft_re
     im = frames @ dft_im
+    return _log((re * re + im * im) @ mel, log_mode, log_offset)
+
+
+def bases_fold(dft_re: torch.Tensor, dft_im: torch.Tensor) -> bool:
+    """Do the (W, F) bases fold: W even, ``dre[W - n] = dre[n]`` and
+    ``dim[W - n] = -dim[n]`` for 0 < n < W/2, to float32 accuracy (the bases
+    are float64 values cast to float32, so the halves agree to about one ulp
+    of the largest value, not bit for bit)?"""
+    w = dft_re.shape[0]
+    if w % 2 or w < 4:
+        return False
+    h = w // 2
+    tol = _FOLD_ULPS * torch.finfo(torch.float32).eps * float(
+        max(dft_re.abs().max(), dft_im.abs().max()))
+    mirror = torch.arange(w - 1, h, -1, device=dft_re.device)  # W - n for n = 1 .. h - 1
+    return bool((dft_re[1:h] - dft_re[mirror]).abs().max() <= tol
+                and (dft_im[1:h] + dft_im[mirror]).abs().max() <= tol)
+
+
+class KernelLayout(NamedTuple):
+    """What the kernel reads besides the frames, built once per base tensor."""
+
+    fold: bool
+    k: int  # product depth: W/2 + 1 folded, W otherwise
+    bases: torch.Tensor  # (2, Kp, Fp) float32: re and im rows 0..k-1, zero-padded
+    band: torch.Tensor  # (2, M) int32: first and one past the last nonzero row per mel column
+
+
+_KP, _FP = 16, 128  # the kernel's slice depth and chunk width
+_FOLD_ULPS = 4
+_LAYOUTS = WeakIdKeyDictionary()  # dft_re -> (dft_im, mel, versions, KernelLayout)
+
+
+def _build_layout(dft_re, dft_im, mel) -> KernelLayout:
+    w, f = dft_re.shape
+    fold = bases_fold(dft_re, dft_im)
+    k = w // 2 + 1 if fold else w
+    kp, fp = -(-k // _KP) * _KP, -(-f // _FP) * _FP
+    bases = torch.zeros((2, kp, fp), dtype=torch.float32, device=dft_re.device)
+    bases[0, :k, :f] = dft_re[:k]
+    bases[1, :k, :f] = dft_im[:k]
+    rows = torch.arange(f, device=mel.device)[:, None]
+    nz = mel != 0
+    lo = torch.where(nz, rows, f).amin(dim=0)
+    hi = torch.where(nz, rows + 1, 0).amax(dim=0)
+    band = torch.stack([lo, torch.maximum(hi, lo)]).to(torch.int32).contiguous()
+    kernel_layout.builds += 1
+    return KernelLayout(fold, k, bases, band)
+
+
+def kernel_layout(dft_re: torch.Tensor, dft_im: torch.Tensor, mel: torch.Tensor) -> KernelLayout:
+    """The kernel's layout of these bases, built at the first call for
+    ``dft_re`` and cached while it lives (rebuilt if ``dft_im`` or ``mel`` is
+    another tensor, or any of the three was written in place)."""
+    versions = (dft_re._version, dft_im._version, mel._version)
+    hit = _LAYOUTS.get(dft_re)
+    if hit is not None and hit[0] is dft_im and hit[1] is mel and hit[2] == versions:
+        return hit[3]
+    layout = _build_layout(dft_re, dft_im, mel)
+    _LAYOUTS[dft_re] = (dft_im, mel, versions, layout)
+    return layout
+
+
+# Layouts built since import (tests count them).
+kernel_layout.builds = 0
+
+
+def fused_log_mel_folded_reference(
+    frames: torch.Tensor,
+    layout: KernelLayout,
+    mel: torch.Tensor,
+    *,
+    log_mode: str,
+    log_offset: float = 0.0,
+) -> torch.Tensor:
+    """The kernel's formulation in plain torch: the frames folded as the
+    layout says (a = x[n] + x[W-n], b = x[n] - x[W-n] for 0 < n < W/2), the
+    two products over the layout's rows, the power, the mel product, the log."""
+    k, f = layout.k, mel.shape[0]
+    re_rows, im_rows = layout.bases[0, :k, :f], layout.bases[1, :k, :f]
+    if layout.fold:
+        w = frames.shape[-1]
+        h = w // 2
+        lo = frames[..., : h + 1]
+        hi = torch.zeros_like(lo)
+        hi[..., 1:h] = frames[..., h + 1 :].flip(-1)  # x[W - n] for n = 1 .. h - 1
+        a, b = lo + hi, lo - hi
+    else:
+        a = b = frames
+    re, im = a @ re_rows, b @ im_rows
     return _log((re * re + im * im) @ mel, log_mode, log_offset)
 
 
@@ -137,11 +239,13 @@ def fused_log_mel(
     if not 1 <= m <= MAX_MELS:
         raise ValueError(f"fused_log_mel: M={m}; the kernel takes 1 <= M <= {MAX_MELS}")
 
+    layout = kernel_layout(dft_re, dft_im, mel)
     out = torch.empty((b, n, m), dtype=torch.float32, device=frames.device)
     stream = torch.cuda.current_stream(frames.device).cuda_stream
+    _, kp, fp = layout.bases.shape
     rc = _library().fadtk_fused_log_mel(
-        frames.data_ptr(), fr3.stride(0), fr3.stride(1), b, n, w,
-        dft_re.data_ptr(), dft_im.data_ptr(), f, mel.data_ptr(), m,
+        frames.data_ptr(), fr3.stride(0), fr3.stride(1), b, n, w, int(layout.fold),
+        layout.bases.data_ptr(), kp, fp, f, mel.data_ptr(), layout.band.data_ptr(), m,
         out.data_ptr(), LOG_MODES[log_mode], float(log_offset), stream,
     )
     if rc != 0:

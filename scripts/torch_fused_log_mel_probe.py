@@ -9,11 +9,12 @@ twin and the mean CUDA-event time of 10 launches of the kernel and of the
 twin: at Whisper's geometry (B=16 x 3000 frames of 400 read through the
 strided view of the padded signal, F=201, M=80), at VGGish's bases on
 contiguous frames (N=24576, W=400, F=257, M=64), at CLAP's (N=16016,
-W=1024, F=513, M=64), and at small ragged shapes. Last, Whisper's whole
+W=1024, F=513, M=64), and at small ragged shapes (Whisper's folded bases and VGGish's unfolded ones). Last, Whisper's whole
 frontend on the card against the CPU. chip_smoke.py is the full check; this
 is the short first call for a kernel edit.
 """
 
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -52,6 +53,10 @@ def _check(label, frames, bases, mode, offset=0.0, timed=True):
 
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"{smi.splitlines()[0] if smi else 'nvidia-smi: no output'}; "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.time()
     lib = k3.library_path()
     print(f"build {time.time() - t0:.1f} s")
@@ -71,7 +76,11 @@ def main() -> None:
     _check("clap N=16016", frames, cb, "db_clamp")
     for n in (1, 65, 130):
         frames = torch.randn((3, n, 400), generator=g, device=dev) * 0.1
-        _check(f"ragged B=3 N={n}", frames, wb, "log10_clamp", timed=False)
+        _check(f"ragged B=3 N={n} folded", frames, wb, "log10_clamp", timed=False)
+        _check(f"ragged B=3 N={n} unfolded", frames, vb, "ln_offset", 0.01, timed=False)
+    print("bases fold: " + ", ".join(f"{name} {k3.kernel_layout(*b).fold}"
+                                     for name, b in (("whisper", wb), ("vggish", vb),
+                                                     ("clap", cb))), flush=True)
 
     torch.backends.cudnn.allow_tf32 = False
     want = dmel.whisper_log_mel(audio[:2].cpu())

@@ -6,7 +6,10 @@ tests/test_pallas_mel.py's two shapes, and on a strided ``unfold`` view of a
 signal against the same frames made contiguous. The CUDA kernel is held
 against the twin on the card (marked ``cuda``): at Whisper's geometry through
 the strided view, at VGGish's and CLAP's bases on contiguous frames, and at
-small ragged shapes.
+small ragged shapes, through the folded and the unfolded template. On the
+CPU, the kernel's layout (the even/odd fold decision, the padded bases, the
+mel bands, built once per base tensor) and its folded formulation in plain
+torch are held against the twin.
 
 JAX is imported inside the tests that use it: the machine with the card has
 no JAX, and runs the ``cuda`` tests there with
@@ -85,6 +88,79 @@ def test_unknown_log_mode_raises():
 
 
 # --------------------------------------------------------------------------- #
+# The kernel's layout: the even/odd fold, the padded bases, the mel bands
+# --------------------------------------------------------------------------- #
+
+
+def _family_bases(case):
+    cpu = torch.device("cpu")
+    if case == "clap":
+        return dmel._device_bases("torchlibrosa", cpu, 1024, 48000, 64, 50.0, 14000.0)
+    return dmel._device_bases(case, cpu)
+
+
+@pytest.mark.parametrize("case,folds", [("whisper", True), ("clap", True), ("vggish", False),
+                                        ("ramp", False)])
+def test_fold_decision(case, folds):
+    """Periodic Hann with W = n_fft folds (Whisper W=400, CLAP W=1024); VGGish's
+    400-sample window in a 512-point DFT does not, nor Whisper's DFT under a
+    window that is not symmetric (a ramp)."""
+    if case == "ramp":
+        w, n_fft = 400, 400
+        phase = -2.0 * np.pi * np.outer(np.arange(w), np.arange(n_fft // 2 + 1)) / n_fft
+        ramp = np.linspace(0.0, 1.0, w)[:, None]
+        bases = [torch.from_numpy((f(phase) * ramp).astype(np.float32)) for f in (np.cos, np.sin)]
+    else:
+        bases = _family_bases(case)[:2]
+    assert k3.bases_fold(*bases) is folds
+
+
+# The folded product sums other float32 terms in another order than the
+# twin's (W, F) GEMM: measured <= 2.2e-6 on log10 and ln values; the dB
+# mode is ten times the log10 value.
+FOLDED_ATOL = {"ln_offset": 1e-5, "log10_clamp": 1e-5, "db_clamp": 1e-4}
+
+
+@pytest.mark.parametrize("log_mode,log_offset", MODES)
+@pytest.mark.parametrize("case", ["whisper", "clap", "vggish"])
+def test_folded_formulation_matches_twin(case, log_mode, log_offset):
+    """The kernel's formulation in plain torch over the cached layout (folded
+    for Whisper and CLAP, all W rows for VGGish) against the twin."""
+    bases = _family_bases(case)
+    layout = k3.kernel_layout(*bases)
+    w, f = bases[0].shape
+    assert layout.k == (w // 2 + 1 if layout.fold else w)
+    kp, fp = layout.bases.shape[1:]
+    assert kp % 16 == 0 and kp >= layout.k and fp % 128 == 0 and fp >= f
+    rng = np.random.default_rng(w)
+    frames = torch.from_numpy((rng.standard_normal((3, 41, w)) * 0.1).astype(np.float32))
+    got = k3.fused_log_mel_folded_reference(frames, layout, bases[2], log_mode=log_mode,
+                                            log_offset=log_offset)
+    want = k3.fused_log_mel_reference(frames, *bases, log_mode=log_mode, log_offset=log_offset)
+    torch.testing.assert_close(got, want, rtol=0, atol=FOLDED_ATOL[log_mode])
+
+
+def test_layout_is_built_once_per_base_tensor():
+    """One build per base tensor; another tensor with the same values, or the
+    same tensor written in place, builds again. The bands hold every nonzero
+    of the mel matrix."""
+    dre, dim, mel = (t.clone() for t in _family_bases("whisper"))
+    before = k3.kernel_layout.builds
+    first = k3.kernel_layout(dre, dim, mel)
+    assert k3.kernel_layout(dre, dim, mel) is first
+    assert k3.kernel_layout.builds == before + 1
+    other = k3.kernel_layout(dre.clone(), dim, mel)
+    assert other is not first and k3.kernel_layout.builds == before + 2
+    mel.mul_(1.0)
+    assert k3.kernel_layout(dre, dim, mel) is not first
+    assert k3.kernel_layout.builds == before + 3
+    lo, hi = first.band.long()
+    rows = torch.arange(mel.shape[0])[:, None]
+    inside = (rows >= lo[None]) & (rows < hi[None])
+    assert not (mel != 0)[~inside].any()
+
+
+# --------------------------------------------------------------------------- #
 # The kernel on the card
 # --------------------------------------------------------------------------- #
 
@@ -137,12 +213,16 @@ def test_kernel_matches_twin_on_contiguous_frames(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["whisper", "vggish"])
 @pytest.mark.parametrize("n", [1, 63, 65, 130])
-def test_kernel_matches_twin_on_ragged_tiles(n):
+def test_kernel_matches_twin_on_ragged_tiles(n, case):
+    """Ragged frame tiles through the folded (Whisper's bases) and the
+    unfolded (VGGish's) templates."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(n)
     frames = torch.randn((3, n, 400), generator=g, device=dev) * 0.1
-    _card_check(frames, dmel._device_bases("whisper", dev), "log10_clamp")
+    bases = dmel._device_bases(case, dev)
+    assert k3.kernel_layout(*bases).fold is (case == "whisper")
+    _card_check(frames, bases, "log10_clamp")
     with pytest.raises(ValueError, match="unit sample stride"):
-        k3.fused_log_mel(frames[:, :, ::2], *dmel._device_bases("whisper", dev),
-                         log_mode="log10_clamp")
+        k3.fused_log_mel(frames[:, :, ::2], *bases, log_mode="log10_clamp")
