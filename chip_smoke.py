@@ -24,9 +24,10 @@ Phases:
      bf16 and f32 at H=12 (wavlm-base-plus) and bf16 at H=16 (wavlm-large);
    - K4, the fused SEANet residual block: the four call sites of one
      encodec-emb forward of 10 s clips at B=16 (C/T = 32/240000, 64/120000,
-     128/30000, 256/6000, none a multiple of the kernel's tile) in f32 and
-     bf16, plus small ragged cases (T = 1001 and the minimum T = 3); no
-     single library call computes it;
+     128/30000, 256/6000, none a multiple of the kernel's tile) in f32 (CUDA
+     cores) and bf16 (tensor cores), each site's time beside the unfused
+     cuDNN chain's, plus small ragged cases (T = 1001 and the minimum T = 3);
+     no single library call computes it;
    - K2, the head-major flash attention, the tensor-parallel path's kernel
      for WavLM: B=16/T=499 with the factorized bias in bf16 at H=12
      (wavlm-base-plus), H=16 (wavlm-large) and H=6 (a tp=2 shard) and in f32
@@ -36,12 +37,16 @@ Phases:
      head-major tensors as the yardstick;
    - K3, the fused log-mel spectrogram: Whisper's geometry at B=16 (3000
      frames of 400 per 30 s window, read through the strided view of the
-     reflect-padded signal, F=201, M=80) in ``log10_clamp``; ``ln_offset``
-     at VGGish's bases (W=400, F=257, M=64) on 256 x 96 contiguous frames;
-     ``db_clamp`` at CLAP's (W=1024, hop 480, F=513, M=64, 48 kHz) on
-     B=16 x 1001 contiguous frames; small ragged cases. The library
-     yardstick is the chain torch.stft (periodic Hann) -> abs()² -> mel
-     matmul -> clamp/log on the same signal;
+     reflect-padded signal, F=201, M=80) in ``log10_clamp``, with the
+     even/odd fold of its periodic-window bases; ``ln_offset`` at VGGish's
+     bases (W=400 in a 512-point DFT: no fold; F=257, M=64) on 256 x 96
+     contiguous frames; ``db_clamp`` at CLAP's (W=1024, hop 480, F=513, M=64,
+     48 kHz; folded) on B=16 x 1001 contiguous frames; the other two modes on
+     Whisper's strided frames; ragged tiles (N = 1, 65, 130) through both
+     templates. The library yardstick is the chain torch.stft (periodic
+     Hann) -> abs()² -> mel matmul -> clamp/log on the same signal; the
+     bound counts the folded DFT where the bases fold and the mel matrix's
+     nonzeros;
 4. full-width forwards (random weights from a seed) of w2v2-base,
    wavlm-base-plus and MERT-v1-95M (24 kHz, T=749): f32 on the card against
    f32 on the CPU, same weights, one 10 s clip; then batch-16 forward times
@@ -52,8 +57,12 @@ Phases:
    block's knob (FADTK_TPU_FUSED_RESNET) on and off, encodec-emb-48k on a
    2.5 s stereo clip (two 1 s segments and a tail), dac-44kHz on one 5 s
    window; then batch-16 10 s forwards of encodec-emb in f32 and bf16, each
-   with the knob off and on (the A/B), and dac-44kHz forwards of 8 windows in
-   f32 and bf16, with the device time by kernel and the idle share;
+   with the knob off and on (the A/B), bf16 also with the LSTM's weights
+   left scattered by a bare ``.to(bfloat16)`` (the cast before
+   ``models.base.cast_module``), and dac-44kHz forwards of 8 windows in f32
+   and bf16, with the device time by kernel and the idle share; a cuDNN
+   "weights are not part of single contiguous chunk" warning fails any
+   bf16 encodec-emb forward of the model's own cast;
 6. the mel families through their model classes, f32 on the card against
    f32 on the CPU, same weights: whisper-base on one 30 s window and vggish
    on one 5 s clip; then vggish's network on one cross-file batch of 256
@@ -69,7 +78,8 @@ Phases:
    encodec-emb-48k ``--bf16``, dac-44kHz ``--bf16``, whisper-base in f32 and
    ``--bf16`` and vggish ``--bf16``. Every kernel launch count is set to 0
    just before each run and read just after it: K1/K1b must launch 12 times
-   per speech device batch, K4 4 times per encodec-emb forward, K3 once per
+   per speech device batch, K4 (f32) or K4b (its bf16 tensor-core form) 4
+   times per encodec-emb forward, K3 once per
    whisper forward, and no kernel elsewhere;
 8. the device pipeline through the CLI (``--device-pipeline``: no embedding
    caches, statistics on the card) on the same two datasets: w2v2-base and
@@ -415,9 +425,9 @@ def check_resnet(torch, fr, dtype, c: int, t: int, b: int = BATCH, timed: bool =
 
 def k4_path_checks(torch, fr) -> dict:
     """K4 at the four call sites in f32 and bf16, and the ragged cases.
-    Returns the kernels-line entry for one forward's four launches in f32:
-    the summed kernel and twin times, the bound of the summed work, the
-    largest error."""
+    Returns the kernels-line entries, by dtype, for one forward's four
+    launches: the summed kernel and twin times, the bound of the summed work,
+    the largest error."""
     torch.backends.cudnn.allow_tf32 = False  # the f32 twin's convs stay f32
     per = {name: [check_resnet(torch, fr, dtype, c, t) for c, t in K4_SHAPES]
            for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
@@ -432,17 +442,24 @@ def k4_path_checks(torch, fr) -> dict:
             **_roofline(sum(r["flops"] for r in rows), sum(r["bytes"] for r in rows), name),
             "library_ms": None,
         }
-        print(f"K4 {name}, the four launches of one batch-16 forward: {summed[name]}", flush=True)
-    return summed["float32"]
+        faster = all(r["ms"] < r["plain_ms"] for r in rows)
+        print(f"K4 {name}, the four launches of one batch-16 forward: {summed[name]}; faster "
+              f"than the cuDNN chain at every site: {faster}; kernel / chain "
+              f"{summed[name]['ms'] / summed[name]['plain_ms']:.3f}", flush=True)
+    return summed
 
 
-def log_mel_bound(n: int, w: int, f: int, m: int, in_bytes: int) -> dict:
+def log_mel_bound(n: int, w: int, f: int, m: int, in_bytes: int, fold: bool,
+                  mel_nnz: int) -> dict:
     """The least time the card could take for one fused log-mel call over n
-    frames: both DFT products (2·N·W·2F FLOP) and the mel product (2·N·F·M)
-    at the f32 rate, against the frames' source read once (``in_bytes``:
-    the padded signal for the strided view, the (N, W) frames otherwise),
-    the bases read once and the (N, M) output written once, all float32."""
-    flops = 2 * n * w * 2 * f + 2 * n * f * m
+    frames: the DFT products at the f32 rate, 2·N·W·2F FLOP, or half that
+    (2·N·F·W) where the bases fold (a periodic window with W = n_fft:
+    ``dre[W-n] = dre[n]``, ``dim[W-n] = -dim[n]``), plus the mel product over
+    the mel matrix's nonzeros (2·N·nnz), against the frames' source read once
+    (``in_bytes``: the padded signal for the strided view, the (N, W) frames
+    otherwise), the bases and the mel matrix read once and the (N, M) output
+    written once, all float32."""
+    flops = 2 * n * w * f * (1 if fold else 2) + 2 * n * mel_nnz
     nbytes = in_bytes + 4 * (2 * w * f + f * m) + 4 * n * m
     return {"flops": flops, "bytes": nbytes, **_roofline(flops, nbytes, "float32")}
 
@@ -472,13 +489,17 @@ def check_log_mel(torch, k3, label: str, frames, bases, log_mode: str, log_offse
         lib_err = (library().reshape(ref.shape) - ref).abs().max().item()
         ms, plain_ms, library_ms = (cuda_ms(torch, fn) for fn in (kernel, twin, library))
         w, f, m = frames.shape[-1], bases[0].shape[1], bases[2].shape[1]
-        bound = log_mel_bound(ref.numel() // m, w, f, m, in_bytes)
+        layout = k3.kernel_layout(*bases)
+        bound = log_mel_bound(ref.numel() // m, w, f, m, in_bytes, layout.fold,
+                              int((bases[2] != 0).sum()))
+        old = log_mel_bound(ref.numel() // m, w, f, m, in_bytes, False, f * m)
         result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
                       bound_by=bound["bound_by"], library_ms=library_ms)
         line += (f"; stft chain vs twin {lib_err:.3e}; kernel={ms:.4f} ms plain={plain_ms:.4f} "
-                 f"ms stft chain={library_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.2f} us by "
-                 f"{bound['bound_by']} ({bound['flops'] / 1e9:.3f} GFLOP, "
-                 f"{bound['bytes'] / 1e6:.2f} MB)")
+                 f"ms stft chain={library_ms:.4f} ms; bases fold: {layout.fold}; bound "
+                 f"{bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']} "
+                 f"({bound['flops'] / 1e9:.3f} GFLOP, {bound['bytes'] / 1e6:.2f} MB; unfolded "
+                 f"DFT and dense mel product: {old['bound_ms'] * 1e3:.2f} us)")
         if not lib_err <= 10 * tol:
             raise AssertionError(f"{label}: the stft chain differs from the twin by {lib_err}")
     print(line, flush=True)
@@ -539,9 +560,17 @@ def k3_path_checks(torch, k3) -> dict:
                       stft_power(clap, 1024, 480, 1024, True).transpose(1, 2) @ cb[2], 1e-10)))
     del audio, sig, frames, padded, clap
 
-    for n in (1, 65, 130):  # ragged frame tiles, three clips
-        check_log_mel(torch, k3, f"K3 log10_clamp ragged B=3 N={n}",
+    # The other two modes on Whisper's strided frames, and ragged frame tiles
+    # (three clips) through both templates.
+    wf = dmel.whisper_frames(torch.randn((2, dmel.WHISPER_SAMPLES), generator=g, device=dev) * 0.1)
+    for mode, offset in (("ln_offset", 0.01), ("db_clamp", 0.0)):
+        check_log_mel(torch, k3, f"K3 {mode} Whisper B=2 (strided view)", wf, wb, mode, offset)
+    for n in (1, 65, 130):
+        check_log_mel(torch, k3, f"K3 log10_clamp ragged B=3 N={n} (folded)",
                       torch.randn((3, n, 400), generator=g, device=dev) * 0.1, wb, "log10_clamp")
+        check_log_mel(torch, k3, f"K3 ln_offset ragged B=3 N={n} (VGGish bases, unfolded)",
+                      torch.randn((3, n, 400), generator=g, device=dev) * 0.1, vb, "ln_offset",
+                      0.01)
     return whisper
 
 
@@ -911,7 +940,7 @@ def cli_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: b
     return {**launches, "forwards": n_forwards, "rate": seconds / embed_s, "score": score}
 
 
-KERNEL_KEYS = ("K1", "K1b", "K4", "K3", "K2", "K2g")
+KERNEL_KEYS = ("K1", "K1b", "K4", "K4b", "K3", "K2", "K2g")
 
 
 def reset_counts(kernels) -> None:
@@ -920,17 +949,19 @@ def reset_counts(kernels) -> None:
     fa.flash_attention_packed.launches = fa.flash_attention_packed.bias_launches = 0
     fa.flash_attention.launches = fa.flash_attention.bias_launches = 0
     fa.flash_attention.grouped_launches = 0
-    fr.fused_resnet_causal.launches = 0
+    fr.fused_resnet_causal.launches = fr.fused_resnet_causal.bf16_launches = 0
     k3.fused_log_mel.launches = 0
 
 
 def read_counts(kernels) -> dict:
-    """The launch counts by kernel; K2 is the per-head grid (with or
-    without bias, ``flash_attention.py:490``), K2g the grouped one (:422)."""
+    """The launch counts by kernel; K4 is the float32 SEANet block, K4b its
+    bf16 tensor-core form; K2 is the per-head grid (with or without bias,
+    ``flash_attention.py:490``), K2g the grouped one (:422)."""
     fa, fr, k3 = kernels
     return {"K1": fa.flash_attention_packed.launches,
             "K1b": fa.flash_attention_packed.bias_launches,
             "K4": fr.fused_resnet_causal.launches,
+            "K4b": fr.fused_resnet_causal.bf16_launches,
             "K3": k3.fused_log_mel.launches,
             "K2": fa.flash_attention.launches + fa.flash_attention.bias_launches,
             "K2g": fa.flash_attention.grouped_launches}
@@ -950,7 +981,7 @@ def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
     runs = [("w2v2-base", False, None, None), ("w2v2-base", True, None, ("K1", 12)),
             ("wavlm-base-plus", False, None, None), ("wavlm-base-plus", True, None, ("K1b", 12)),
             ("MERT-v1-95M", True, None, ("K1", 12)),
-            ("encodec-emb", False, fused, ("K4", 4)), ("encodec-emb", True, fused, ("K4", 4)),
+            ("encodec-emb", False, fused, ("K4", 4)), ("encodec-emb", True, fused, ("K4b", 4)),
             ("encodec-emb-48k", True, None, None), ("dac-44kHz", True, None, None),
             ("whisper-base", False, None, ("K3", 1)), ("whisper-base", True, None, ("K3", 1)),
             ("vggish", True, None, None)]
@@ -1230,7 +1261,11 @@ def main() -> int:
             {"name": "fused_resnet_causal (f32, one forward's four launches)", "route": "cuda",
              "source": "fadtk_tpu_torch/csrc/fused_resnet_causal.cu",
              "replaces": "fadtk_tpu/ops/fused_resnet.py:125",
-             "launches": launches["K4"], **k4},
+             "launches": launches["K4"], **k4["float32"]},
+            {"name": "fused_resnet_causal (bf16 tensor cores, one forward's four launches)",
+             "route": "cuda", "source": "fadtk_tpu_torch/csrc/fused_resnet_causal.cu",
+             "replaces": "fadtk_tpu/ops/fused_resnet.py:125",
+             "launches": launches["K4b"], **k4["bfloat16"]},
             {"name": "fused_log_mel (log10_clamp, Whisper B=16)", "route": "cuda",
              "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
              "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",

@@ -43,9 +43,9 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from . import build
+from .layout_cache import LayoutCache
 
 _SOURCE = build.CSRC / "fused_log_mel.cu"
 LOG_MODES = {"ln_offset": 0, "log10_clamp": 1, "db_clamp": 2}
@@ -132,7 +132,6 @@ class KernelLayout(NamedTuple):
 
 _KP, _FP = 16, 128  # the kernel's slice depth and chunk width
 _FOLD_ULPS = 4
-_LAYOUTS = WeakIdKeyDictionary()  # dft_re -> (dft_im, mel, versions, KernelLayout)
 
 
 def _build_layout(dft_re, dft_im, mel) -> KernelLayout:
@@ -148,25 +147,12 @@ def _build_layout(dft_re, dft_im, mel) -> KernelLayout:
     lo = torch.where(nz, rows, f).amin(dim=0)
     hi = torch.where(nz, rows + 1, 0).amax(dim=0)
     band = torch.stack([lo, torch.maximum(hi, lo)]).to(torch.int32).contiguous()
-    kernel_layout.builds += 1
     return KernelLayout(fold, k, bases, band)
 
 
-def kernel_layout(dft_re: torch.Tensor, dft_im: torch.Tensor, mel: torch.Tensor) -> KernelLayout:
-    """The kernel's layout of these bases, built at the first call for
-    ``dft_re`` and cached while it lives (rebuilt if ``dft_im`` or ``mel`` is
-    another tensor, or any of the three was written in place)."""
-    versions = (dft_re._version, dft_im._version, mel._version)
-    hit = _LAYOUTS.get(dft_re)
-    if hit is not None and hit[0] is dft_im and hit[1] is mel and hit[2] == versions:
-        return hit[3]
-    layout = _build_layout(dft_re, dft_im, mel)
-    _LAYOUTS[dft_re] = (dft_im, mel, versions, layout)
-    return layout
-
-
-# Layouts built since import (tests count them).
-kernel_layout.builds = 0
+# The kernel's layout of a set of bases, built once per base tensor (while it
+# lives; again if any of the three has other memory or was written in place).
+kernel_layout = LayoutCache(_build_layout)
 
 
 def fused_log_mel_folded_reference(

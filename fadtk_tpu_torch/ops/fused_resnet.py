@@ -13,7 +13,11 @@ columns on the left. Products accumulate in float32; in bf16 each product is
 rounded to the input dtype before its bias is added, as in the Pallas kernel.
 The kernel is CUDA C++ for sm_90a (``fadtk_tpu_torch/csrc/fused_resnet_causal.cu``;
 its header says what bounds it and how it is laid out), built at first use
-(``ops/build.py``) and loaded with ctypes.
+(``ops/build.py``) and loaded with ctypes: float32 on the CUDA cores, bf16 on
+the tensor cores (``mma.sync`` bf16 -> float32). Each form reads the weights
+in its own layout, prepared once per weight set and cached
+(``kernel_weights``): float32 output-channel-major copies, or the bf16
+weights packed in the tensor cores' fragment order.
 
 Routing is by the tensor's device, and only by it:
 
@@ -36,10 +40,11 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .layout_cache import LayoutCache
 
 _SOURCE = build.CSRC / "fused_resnet_causal.cu"
 WIDTHS = (32, 64, 128, 256)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 
@@ -65,11 +70,44 @@ def _library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(library_path()))
-            fn = lib.fadtk_fused_resnet_causal
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            for name in ("fadtk_fused_resnet_causal", "fadtk_fused_resnet_causal_bf16"):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             _LIB = lib
         return _LIB
+
+
+def pack_fragments(w: torch.Tensor) -> torch.Tensor:
+    """(N, K) weights, as ``[out][in]``, in the order ``mma.sync.m16n8k16``
+    takes its B operand: (N/8, K/16, 32 lanes, 4). Lane l of n8 tile i and
+    k16 tile j holds ``w[8i + l//4, 16j + 2(l%4) + (0, 1, 8, 9)]``: one
+    8-byte load per lane and fragment."""
+    n, k = w.shape
+    lane = torch.arange(32, device=w.device)
+    cols = 2 * (lane % 4)[:, None] + torch.tensor([0, 1, 8, 9], device=w.device)  # (32, 4)
+    tiles = w.reshape(n // 8, 8, k // 16, 16).permute(0, 2, 1, 3)  # (N/8, K/16, 8, 16)
+    rows = tiles[:, :, lane // 4]  # (N/8, K/16, 32, 16): lane l's row of its tile
+    return torch.gather(rows, 3, cols.expand(n // 8, k // 16, 32, 4)).contiguous()
+
+
+def _build_weights(w1, b1, w2, b2, wsc, bsc) -> tuple[torch.Tensor, ...]:
+    biases = tuple(v.float().contiguous() for v in (b1, b2, bsc))
+    if w1.dtype == torch.bfloat16:
+        ch, c, _ = w1.shape
+        w1r = w1.permute(0, 2, 1).reshape(ch, 3 * c)  # K = (tap, channel)
+        packed = tuple(pack_fragments(w) for w in (w1r, w2, wsc))
+    else:
+        packed = (w1.float().permute(1, 2, 0).contiguous(),  # (C, 3, Ch)
+                  w2.float().t().contiguous(),  # (Ch, C)
+                  wsc.float().t().contiguous())  # (C, C)
+    return packed[0], biases[0], packed[1], biases[1], packed[2], biases[2]
+
+
+# The kernel's layout of one weight set, (w1, b1, w2, b2, wsc, bsc) as the
+# entry point takes them, built once per weight set: weights do not change
+# after load, so a forward's four calls cost four lookups.
+kernel_weights = LayoutCache(_build_weights)
 
 
 def fused_resnet_causal_reference(
@@ -115,7 +153,7 @@ def fused_resnet_causal(
     ch = c // 2
     if c not in WIDTHS:
         raise ValueError(f"fused_resnet_causal: C={c}; the kernel takes C in {WIDTHS}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in DTYPES:
         raise ValueError(f"fused_resnet_causal: dtype {x.dtype} (bf16 or float32 only)")
     if t < 3:
         raise ValueError(f"fused_resnet_causal: T={t}; the reflect pad needs T >= 3")
@@ -127,23 +165,24 @@ def fused_resnet_causal(
             raise ValueError(f"fused_resnet_causal: {name} must be {x.dtype} {shape} on "
                              f"{x.device}, got {w.dtype} {tuple(w.shape)} {w.device}")
 
-    # float32 weights with output channels contiguous (exact for bf16 weights)
-    w1t = w1.float().permute(1, 2, 0).contiguous()  # (C, 3, Ch)
-    w2t = w2.float().t().contiguous()  # (Ch, C)
-    wsct = wsc.float().t().contiguous()  # (C, C)
-    b1f, b2f, bscf = (v.float().contiguous() for v in (b1, b2, bsc))
+    layout = kernel_weights(w1, b1, w2, b2, wsc, bsc)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _library().fadtk_fused_resnet_causal(
-        x.data_ptr(), w1t.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
-        wsct.data_ptr(), bscf.data_ptr(), out.data_ptr(), b, c, t, _DTYPE_CODE[x.dtype], stream,
-    )
+    lib = _library()
+    fn = lib.fadtk_fused_resnet_causal_bf16 if x.dtype == torch.bfloat16 else \
+        lib.fadtk_fused_resnet_causal
+    rc = fn(x.data_ptr(), *(w.data_ptr() for w in layout), out.data_ptr(), b, c, t, stream)
     if rc != 0:
         raise RuntimeError(f"fused_resnet_causal: kernel launch failed, cudaError {rc}")
-    fused_resnet_causal.launches += 1
+    if x.dtype == torch.bfloat16:
+        fused_resnet_causal.bf16_launches += 1
+    else:
+        fused_resnet_causal.launches += 1
     return out
 
 
-# Kernel launches since the last reset (``chip_smoke.py`` zeroes it and reads it
-# around the main path to show the path went through the kernel).
+# Kernel launches since the last reset, of the float32 kernel and of the bf16
+# tensor-core one (``chip_smoke.py`` zeroes them and reads them around the main
+# path to show the path went through the kernel).
 fused_resnet_causal.launches = 0
+fused_resnet_causal.bf16_launches = 0

@@ -205,6 +205,27 @@ def test_model_24k_frames(random_weights):
     assert m.get_embedding(audio[None, :]).shape == (76, 128)  # causal padding ceils
 
 
+def test_model_bf16_cast_keeps_the_lstm_bound_to_its_weights(random_weights, monkeypatch):
+    """The bf16 mode casts through ``models.base.cast_module``: every
+    parameter is bf16, the LSTM's flat weight list is the module's own
+    parameters (what cuDNN's buffer is laid out from on the card), and the
+    latents equal those of a bare ``.to(bfloat16)`` of the same weights."""
+    import copy
+
+    from fadtk_tpu_torch.models.encodec import EncodecEmbModel
+
+    monkeypatch.setenv("FADTK_TPU_BF16", "1")
+    m = EncodecEmbModel("24k")
+    m.ensure_loaded()
+    assert {p.dtype for p in m.module.parameters()} == {torch.bfloat16}
+    lstm = next(x for x in m.module.modules() if isinstance(x, torch.nn.LSTM))
+    assert all(w is getattr(lstm, n) for w, n in zip(lstm._flat_weights, lstm._flat_weights_names))
+    audio = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 1, 4800)).astype(np.float32))
+    bare = copy.deepcopy(m.module).float().to(torch.bfloat16)
+    with torch.no_grad():
+        assert torch.equal(enc.encodec_encode(m.module, audio), enc.encodec_encode(bare, audio))
+
+
 def test_model_48k_segments(random_weights):
     from fadtk_tpu_torch.models.encodec import EncodecEmbModel
 

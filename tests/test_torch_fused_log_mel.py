@@ -154,6 +154,9 @@ def test_layout_is_built_once_per_base_tensor():
     mel.mul_(1.0)
     assert k3.kernel_layout(dre, dim, mel) is not first
     assert k3.kernel_layout.builds == before + 3
+    with torch.inference_mode():  # bases made there keep no version counter
+        inf = [t.clone() for t in (dre, dim, mel)]
+    assert k3.kernel_layout(*inf) is k3.kernel_layout(*inf)
     lo, hi = first.band.long()
     rows = torch.arange(mel.shape[0])[:, None]
     inside = (rows >= lo[None]) & (rows < hi[None])

@@ -5,9 +5,11 @@ package's Pallas kernel (``fused_resnet_causal(interpret=True)``) and against
 its XLA chain (``_resnet_block`` with the knob off), at the JAX test's cases
 (tests/test_fused_resnet.py): T = 517, 130 and 3 at C=32, the multi-tile
 C=256 T=4000, and bf16. The port's ``_resnet_block`` routes to the kernel
-wrapper under exactly the JAX guard. The CUDA kernel is held against the twin
-at the four call-site shapes of one 24 kHz forward on the card (marked
-``cuda``).
+wrapper under exactly the JAX guard. The weight layouts the kernel reads
+(float32 copies, or bf16 packed in the tensor cores' fragment order) are
+built once per weight set and equal the per-call ones. The CUDA kernel is
+held against the twin on the card (marked ``cuda``) in both dtypes at the
+four call-site shapes of one 24 kHz forward and at ragged lengths.
 
 JAX is imported inside the tests that use it: the machine with the card has
 no JAX, and runs the ``cuda`` test there with
@@ -170,10 +172,59 @@ def test_guard_refuses(case, monkeypatch):
 def test_cpu_wrapper_runs_the_twin_without_a_launch():
     x, ps = _inputs(2, 64, 97, seed=4)
     args = [torch.from_numpy(a) for a in [x, *ps]]
-    before = fr.fused_resnet_causal.launches
+    before = (fr.fused_resnet_causal.launches, fr.fused_resnet_causal.bf16_launches)
     got = fr.fused_resnet_causal(*args)
     assert torch.equal(got, fr.fused_resnet_causal_reference(*args))
-    assert fr.fused_resnet_causal.launches == before
+    assert (fr.fused_resnet_causal.launches, fr.fused_resnet_causal.bf16_launches) == before
+
+
+# --------------------------------------------------------------------------- #
+# The kernel's weight layouts, prepared once per weight set
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [32, 256])
+def test_cached_weight_layout_equals_the_per_call_one(c, dtype):
+    """kernel_weights builds a weight set's layout once, and it equals the
+    layout built afresh (what the wrapper did on every call before); another
+    weight tensor, or one written in place, builds again."""
+    tdt = getattr(torch, dtype)
+    _, ps = _inputs(1, c, 3, seed=c)
+    w = [torch.from_numpy(a).to(tdt) for a in ps]
+    before = fr.kernel_weights.builds
+    first = fr.kernel_weights(*w)
+    assert fr.kernel_weights(*w) is first and fr.kernel_weights.builds == before + 1
+    fresh = fr._build_weights(*w)
+    assert len(first) == len(fresh) == 6
+    for a, b in zip(first, fresh):
+        assert a.dtype == b.dtype and a.is_contiguous() and torch.equal(a, b)
+    assert [t.dtype for t in first[1::2]] == [torch.float32] * 3
+    w[2].mul_(1)
+    assert fr.kernel_weights(*w) is not first and fr.kernel_weights.builds == before + 2
+    # the model passes fresh views (weight[:, :, 0]) of the same parameters
+    again = fr.kernel_weights(*w)
+    w2, wsc = w[2][:, :, None], w[4][:, :, None]
+    assert fr.kernel_weights(w[0], w[1], w2[:, :, 0], w[3], wsc[:, :, 0], w[5]) is again
+    assert fr.kernel_weights.builds == before + 2
+    with torch.inference_mode():  # weights made there keep no version counter
+        inf = [t.clone() for t in w]
+    assert fr.kernel_weights(*inf) is fr.kernel_weights(*inf)
+
+
+def test_pack_fragments_is_the_mma_b_operand_order():
+    """Lane l of n8 tile i and k16 tile j holds rows 8i + l//4 and columns
+    16j + 2(l%4) + (0, 1, 8, 9); every weight appears once."""
+    n, k = 16, 48
+    w = torch.arange(n * k, dtype=torch.float32).reshape(n, k)
+    p = fr.pack_fragments(w)
+    assert p.shape == (n // 8, k // 16, 32, 4)
+    for i in range(n // 8):
+        for j in range(k // 16):
+            for lane in range(32):
+                row, col = 8 * i + lane // 4, 16 * j + 2 * (lane % 4)
+                assert p[i, j, lane].tolist() == [w[row, col + d].item() for d in (0, 1, 8, 9)]
+    assert torch.equal(p.flatten().sort().values, w.flatten())
 
 
 # --------------------------------------------------------------------------- #
@@ -214,12 +265,30 @@ def test_kernel_matches_twin_on_card(c, t, dtype):
     tdt = getattr(torch, dtype)
     x, ps = _path_inputs(b, c, t, seed=c)
     args = [torch.from_numpy(a).to(dev, tdt) for a in [x, *ps]]
-    before = fr.fused_resnet_causal.launches
+    counter = "bf16_launches" if dtype == "bfloat16" else "launches"
+    before = getattr(fr.fused_resnet_causal, counter)
     got = fr.fused_resnet_causal(*args)
     want = fr.fused_resnet_causal_reference(*args)
     torch.cuda.synchronize()
-    assert fr.fused_resnet_causal.launches == before + 1
+    assert getattr(fr.fused_resnet_causal, counter) == before + 1
     assert got.dtype == tdt and torch.isfinite(got.float()).all()
     _close(got.float().cpu().numpy(), want.float().cpu().numpy(), dtype)
     with pytest.raises(ValueError, match="the kernel takes C in"):
         fr.fused_resnet_causal(args[0][:, :24].contiguous(), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,c,t", [(3, 64, 1001), (2, 32, 3), (2, 256, 70), (1, 128, 129)])
+def test_kernel_matches_twin_on_ragged_lengths(b, c, t, dtype):
+    """Lengths that are not a multiple of the tile, nor of 8 (the bf16 form's
+    16-byte rows), and the minimum T = 3 (the reflected halo only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    tdt = getattr(torch, dtype)
+    x, ps = _path_inputs(b, c, t, seed=t)
+    args = [torch.from_numpy(a).to("cuda", tdt) for a in [x, *ps]]
+    got = fr.fused_resnet_causal(*args)
+    want = fr.fused_resnet_causal_reference(*args)
+    _close(got.float().cpu().numpy(), want.float().cpu().numpy(), dtype)
