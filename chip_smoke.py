@@ -16,7 +16,8 @@ Phases:
 3. every kernel against its plain twin on the card, at the main paths'
    shapes, with CUDA-event times of kernel and twin, one PyTorch library call
    for the same function where there is one (a yardstick the port never
-   calls), and the roofline bound of the run's work:
+   calls), and the roofline bound of the run's work (float32 operations at
+   the 3xTF32 rate, the CUDA-core figure printed beside it):
    - K1, flash attention without bias: the w2v2/HuBERT 16 kHz bucket
      B=16/T=499/H=12 in bf16 and f32, MERT's 24 kHz bucket T=749 in bf16,
      ragged n_valid;
@@ -24,10 +25,10 @@ Phases:
      bf16 and f32 at H=12 (wavlm-base-plus) and bf16 at H=16 (wavlm-large);
    - K4, the fused SEANet residual block: the four call sites of one
      encodec-emb forward of 10 s clips at B=16 (C/T = 32/240000, 64/120000,
-     128/30000, 256/6000, none a multiple of the kernel's tile) in f32 (CUDA
-     cores) and bf16 (tensor cores), each site's time beside the unfused
-     cuDNN chain's, plus small ragged cases (T = 1001 and the minimum T = 3);
-     no single library call computes it;
+     128/30000, 256/6000, none a multiple of the kernel's tile) in f32
+     (3xTF32) and bf16, both on the tensor cores, each site's time beside the
+     unfused cuDNN chain's, plus small ragged cases (T = 1001 and the minimum
+     T = 3); no single library call computes it;
    - K2, the head-major flash attention, the tensor-parallel path's kernel
      for WavLM: B=16/T=499 with the factorized bias in bf16 at H=12
      (wavlm-base-plus), H=16 (wavlm-large) and H=6 (a tp=2 shard) and in f32
@@ -121,11 +122,14 @@ HEAD_DIM, BATCH = 64, 16
 ATOL = {"bfloat16": 2e-2, "float32": 1e-5}
 RTOL_CARD_VS_CPU = 1e-3
 # K4 vs its plain twin, |kernel - twin| <= tol + tol·|twin| (the JAX package's
-# tests/test_fused_resnet.py bounds): float32 differs only by the order of the
-# tap and channel sums (FMA chains, TF32 off in the twin's cuDNN convs); in
-# bf16 the kernel and the twin round the same products to bf16, but cuDNN's
-# tensor-core sums land on the other side of a rounding boundary now and
-# then, one bf16 ulp (2^-8 relative) that moves through the next product.
+# tests/test_fused_resnet.py bounds): float32 runs as 3xTF32 (each product
+# from TF32 hi and lo parts, ~2^-21 of its float32 value; the twin's cuDNN
+# convs in float32, TF32 off) and measured within 7.5e-6 of the twin at
+# |twin| <= 1.8 (C=256; 1.4e-6 at C=32), the CPU emulation of the same split
+# within 1.1e-6; in bf16 the kernel and the twin round the same products to
+# bf16, but cuDNN's tensor-core sums land on the other side of a rounding
+# boundary now and then, one bf16 ulp (2^-8 relative) that moves through the
+# next product.
 K4_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # The four K4 call sites of one encodec-emb forward of 10 s clips (24 kHz):
 # (C, T) after each downsampling stage; 4 launches per forward.
@@ -150,9 +154,12 @@ K3_ATOL = {"ln_offset": 1e-4, "log10_clamp": 1e-4, "db_clamp": 1e-3}
 PIPE_TOL = {"float32": {"mu": 1e-3, "cov": 5e-3, "score": 1e-3},
             "bfloat16": {"mu": 2e-3, "cov": 1e-2, "score": 5e-5}}
 # Roofline of one H100 SXM (NVIDIA data sheet; dense, at 700 W): memory rate
-# and peak rates by input type (bf16 on tensor cores, f32 on CUDA cores).
+# and peak rates by input type: bf16 on the tensor cores; float32 the faster
+# of the CUDA cores (67 TFLOP/s) and 3xTF32 on the tensor cores, three TF32
+# products (495 TFLOP/s) of error-compensated operands for one float32-accurate
+# product, 165 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 
 def phase(name: str) -> None:
@@ -185,11 +192,24 @@ def cuda_ms(torch, fn, runs: int = 25, groups: int = 5) -> float:
 
 def _roofline(flops: float, nbytes: float, dtype: str) -> dict:
     """The larger of the bytes over the memory rate and the operations over the
-    peak rate for the input type, in ms, and which of the two it is."""
+    peak rate for the input type, in ms, and which of the two it is. float32
+    operations take the smaller of their time on the CUDA cores and as 3xTF32
+    (three times the operations at the TF32 rate)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    if dtype == "float32":
+        by_ops = min(by_ops, 3 * flops / PEAK_FLOPS["tf32"] * 1e3)
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def cuda_core_note(flops: float, nbytes: float, dtype: str) -> str:
+    """For float32, the bound with the operations on the CUDA cores, printed
+    beside the one that counts them at the 3xTF32 rate."""
+    if dtype != "float32":
+        return ""
+    us = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]) * 1e6
+    return f"; on the CUDA cores {us:.2f} us"
 
 
 def attention_bound(nv: list[int], t: int, heads: int, dtype: str, bias: bool) -> dict:
@@ -271,7 +291,8 @@ def check_kernel(torch, fa, dtype, t: int, heads: int, bias: bool) -> dict:
     print(f"{label}: max_abs_err={err:.3e} (atol {tol:g}); ragged n_valid: kernel={ms:.4f} ms "
           f"plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms (mask prebuilt, untimed); "
           f"bound {bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']} "
-          f"({bound['gflop']:.3f} GFLOP, {bound['mbytes']:.2f} MB); "
+          f"({bound['gflop']:.3f} GFLOP, {bound['mbytes']:.2f} MB"
+          f"{cuda_core_note(bound['gflop'] * 1e9, bound['mbytes'] * 1e6, name)}); "
           f"all keys valid: kernel={full_ms:.4f} ms", flush=True)
     del mask, ref, out
     if not err <= tol:
@@ -343,7 +364,8 @@ def check_k2(torch, fa, dtype, heads: int, form: str, strided: bool = False) -> 
     print(f"{label}: max_abs_err={err:.3e} (atol {tol:g}){group}; kernel={ms:.4f} ms "
           f"plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms (mask prebuilt, untimed); "
           f"bound {bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']} "
-          f"({bound['gflop']:.3f} GFLOP, {bound['mbytes']:.2f} MB)", flush=True)
+          f"({bound['gflop']:.3f} GFLOP, {bound['mbytes']:.2f} MB"
+          f"{cuda_core_note(bound['gflop'] * 1e9, bound['mbytes'] * 1e6, name)})", flush=True)
     del mask, ref, out
     if not err <= tol:
         raise AssertionError(f"{label}: kernel vs twin max_abs_err {err} > {tol}")
@@ -416,7 +438,8 @@ def check_resnet(torch, fr, dtype, c: int, t: int, b: int = BATCH, timed: bool =
         result.update(ms=ms, plain_ms=plain_ms, **bound)
         line += (f"; kernel={ms:.4f} ms plain={plain_ms:.4f} ms (no single library call); "
                  f"bound {bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']} "
-                 f"({bound['flops'] / 1e9:.3f} GFLOP, {bound['bytes'] / 1e6:.2f} MB)")
+                 f"({bound['flops'] / 1e9:.3f} GFLOP, {bound['bytes'] / 1e6:.2f} MB"
+                 f"{cuda_core_note(bound['flops'], bound['bytes'], name)})")
     print(line, flush=True)
     if over:
         raise AssertionError(f"{label}: {over} values beyond the tolerance, max_abs_err {err}")
@@ -436,16 +459,18 @@ def k4_path_checks(torch, fr) -> dict:
         check_resnet(torch, fr, dtype, 32, 3, b=2, timed=False)
     summed = {}
     for name, rows in per.items():
+        flops, nbytes = sum(r["flops"] for r in rows), sum(r["bytes"] for r in rows)
         summed[name] = {
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-            **_roofline(sum(r["flops"] for r in rows), sum(r["bytes"] for r in rows), name),
+            **_roofline(flops, nbytes, name),
             "library_ms": None,
         }
         faster = all(r["ms"] < r["plain_ms"] for r in rows)
         print(f"K4 {name}, the four launches of one batch-16 forward: {summed[name]}; faster "
               f"than the cuDNN chain at every site: {faster}; kernel / chain "
-              f"{summed[name]['ms'] / summed[name]['plain_ms']:.3f}", flush=True)
+              f"{summed[name]['ms'] / summed[name]['plain_ms']:.3f}"
+              f"{cuda_core_note(flops, nbytes, name)}", flush=True)
     return summed
 
 
@@ -498,7 +523,8 @@ def check_log_mel(torch, k3, label: str, frames, bases, log_mode: str, log_offse
         line += (f"; stft chain vs twin {lib_err:.3e}; kernel={ms:.4f} ms plain={plain_ms:.4f} "
                  f"ms stft chain={library_ms:.4f} ms; bases fold: {layout.fold}; bound "
                  f"{bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']} "
-                 f"({bound['flops'] / 1e9:.3f} GFLOP, {bound['bytes'] / 1e6:.2f} MB; unfolded "
+                 f"({bound['flops'] / 1e9:.3f} GFLOP, {bound['bytes'] / 1e6:.2f} MB"
+                 f"{cuda_core_note(bound['flops'], bound['bytes'], 'float32')}; unfolded "
                  f"DFT and dense mel product: {old['bound_ms'] * 1e3:.2f} us)")
         if not lib_err <= 10 * tol:
             raise AssertionError(f"{label}: the stft chain differs from the twin by {lib_err}")

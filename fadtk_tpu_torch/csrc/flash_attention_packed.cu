@@ -49,29 +49,41 @@
 // products against ~49 MB of q/k/v/out traffic (K1's count; the head-major
 // form moves the same bytes), ~250 FLOP per byte, under the ~295 at which
 // the tensor cores rather than device memory would bind: the roofline is the
-// bytes, ~15 us at 3.35 TB/s, and this simple kernel is far from it, bound by
-// its arithmetic and on-chip data movement. The design keeps everything after
-// the one tile load on chip:
+// bytes, ~15 us at 3.35 TB/s. What holds the kernel above it is on-chip:
+// tensor-core issue, the softmax's exponentials, and the latency of each
+// tile's loads. The bf16 design keeps everything after the loads in
+// registers and overlaps the loads with the products:
 //
 // - one CTA of 4 warps per (64-row query tile, head, batch element), or, in
 //   the grouped form, per (query tile, group of G heads, batch element),
 //   looping over its G heads and reusing the same shared memory for each;
-// - the Q tile is loaded once per head; K and V tiles of 64 keys are staged
-//   in shared memory, and the loop stops at ceil(n_valid / 64) tiles;
-// - bf16: both products run on tensor cores through nvcuda::wmma (16x16x16,
-//   bf16 in, f32 accumulate); each warp owns 16 query rows, so the online
-//   softmax needs only warp-level synchronisation;
-// - f32: both products run as FMA on CUDA cores (tensor-core TF32 would keep
-//   ~3 digits and break the f32 parity contract);
+// - Q is copied once per head, and K and V tiles of 64 keys go through a
+//   ring of two shared-memory stages filled by cp.async (16 bytes a thread,
+//   zero-filled past T), so tile j + 1 lands while tile j is multiplied; the
+//   loop stops at ceil(n_valid / 64) tiles;
+// - bf16: both products are mma.sync.m16n8k16 (bf16 in, f32 accumulate),
+//   operands from shared memory by ldmatrix (V through its transpose); each
+//   warp owns 16 query rows, so the online softmax needs only shuffles
+//   within a quad of lanes; the logits S, the probabilities P (the A operand
+//   of the p.v product is the S accumulator, exponentiated and packed to
+//   bf16 pairs) and the output accumulator never leave registers, and the
+//   output is written from them;
+// - f32: both products run as FMA on CUDA cores, with K, V and P staged in
+//   shared memory (no launch on the main path);
 // - the softmax state (m, l) and the output accumulator stay in registers.
 //
 // The bias form adds, per 64x64 tile, a read of the pb tile (16 KB of f32,
 // batch-independent: 12 MB at H=12, T=499, which the 50 MB L2 keeps for the
-// B query CTAs of a head) and one gate value per query row. In bf16 each warp
-// adds it to its own 16 rows of the logits in shared memory with coalesced
-// 128-byte row reads, so the kernel keeps its 45,056 bytes of static shared
-// memory; in f32 the pb tile is staged in the P buffer, whose row r is read
-// and then overwritten by the same two threads.
+// B query CTAs of a head) and one gate value per query row. In bf16 each
+// lane adds gate[row] * pb[h, row, key] to its own accumulator positions,
+// read straight from L2 (pb rows of odd length are not 8-byte aligned, so
+// the reads are 4-byte); in f32 the pb tile is staged in the P buffer, whose
+// row r is read and then overwritten by the same two threads.
+//
+// wgmma (one warpgroup per 64-row tile, K and V as swizzled shared-memory
+// descriptors) and TMA are not used: mma.sync keeps the same
+// register-resident structure with operand layouts that the bf16 SEANet
+// kernel already exercises.
 //
 // The grouped form's G (fadtk_flash_attention_pick_group) comes from this
 // card, not from the Pallas _pick_group's VMEM budget: shared memory is
@@ -84,11 +96,10 @@
 //
 // The TPU kernels' VMEM block choices (_pick_block, _fit_packed_blocks,
 // _pick_group) were deliberately not carried over: they fit 16 MB of VMEM
-// and a 128x128 MXU. wgmma, TMA and warp specialisation are later work.
+// and a 128x128 MXU.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cfloat>
 #include <cstdint>
@@ -112,22 +123,66 @@ __device__ __forceinline__ int clamp_valid(const int* n_valid, int b, int T) {
 }
 
 // ------------------------------------------------------------------------- //
-// bf16: tensor cores via wmma
+// bf16: mma.sync on the tensor cores, S, P and O in registers
 // ------------------------------------------------------------------------- //
 
-constexpr int LDH = D + 8;  // bf16 tile row stride (multiple of 8, 16 B rows)
-constexpr int LDS = D + 4;  // f32 scratch row stride (multiple of 4)
+constexpr int LDH = D + 8;          // smem tile row stride, elements (144 B: ldmatrix conflict-free)
+constexpr int TILE = 64 * LDH;      // one 64-row tile
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int row0, int T, long long st) {
-  // 64 rows x 64 columns = 512 chunks of 8 bf16 (16 B); rows >= T read as 0.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared of `bytes` (0 or 16) bytes, the
+// rest zero-filled (src must be a valid address even when bytes is 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&a)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&a)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a . b, m16n8k16, bf16 in, f32 accumulate. Not volatile: the
+// scheduler may interleave independent products.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// 64 rows x 64 columns of a (batch, head) into a padded smem tile by
+// cp.async, 16 bytes a thread; rows >= T are zero-filled.
+__device__ __forceinline__ void fetch_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           int row0, int T, long long st) {
+#pragma unroll
   for (int i = threadIdx.x; i < 64 * 8; i += THREADS) {
     const int row = i >> 3, c = (i & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + row < T)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + row) * st + c);
-    *reinterpret_cast<uint4*>(dst + row * LDH + c) = val;
+    const bool live = row0 + row < T;
+    cp_async16(dst + row * LDH + c, live ? src + (row0 + row) * st + c : src, live ? 16 : 0);
   }
 }
 
@@ -142,157 +197,193 @@ __device__ __forceinline__ void zero_tile_bf16(__nv_bfloat16* dst, int q0, int T
 
 // One (query tile, head) of the bf16 kernel. qh/kh/vh/oh point at row 0 of
 // this (batch, head); gh at this (batch, head)'s gate row 0 (stride gst) and
-// pb_h at this head's (T, T) plane, both unused without BIAS.
+// pb_h at this head's (T, T) plane, both unused without BIAS. Qs holds the Q
+// tile, KV the ring of two (K, V) stages.
+//
+// Warp w owns query rows 16w .. 16w + 15 of the tile. In the m16n8k16
+// accumulator layout lane (g = lane / 4, c = lane % 4) holds rows g and g + 8
+// at columns 8j + 2c and 8j + 2c + 1 of each n8 tile j: the logits S (keys)
+// and the output O (dims) both live there, and the A fragments of P for the
+// p.v product are the S accumulators of two neighbouring n8 tiles, packed to
+// bf16 pairs, so S, P and O never leave registers.
 template <bool BIAS>
 __device__ __forceinline__ void attend_bf16(
-    __nv_bfloat16* QP, __nv_bfloat16* Ks, __nv_bfloat16* Vs, float* S,
+    __nv_bfloat16* Qs, __nv_bfloat16* KV,
     const __nv_bfloat16* qh, long long qst, const __nv_bfloat16* kh, long long kst,
     const __nv_bfloat16* vh, long long vst, __nv_bfloat16* oh, long long ost,
     const float* pb_h, const float* gh, long long gst, int q0, int nv, int T) {
-  using namespace nvcuda;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  load_tile_bf16(QP, qh, q0, T, qst);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], QP + warp * 16 * LDH + kk * 16, LDH);
-
-  // Lane (lr, half) owns row warp*16 + lr and the interleaved columns
-  // 2*j + half, j < 32 (both of the logits tile and of the output).
-  const int lr = lane >> 1, half = lane & 1;
-  float* srow = S + (warp * 16 + lr) * LDS;
-  __nv_bfloat16* prow = QP + (warp * 16 + lr) * LDH;
-  float m_i = NEG, l_i = 0.f;
-  float o[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) o[j] = 0.f;
-  // Bias form: lane i < 16 holds the gate of the warp's query row i.
-  float g_lane = 0.f;
-  if (BIAS) {
-    const int gr = q0 + warp * 16 + (lane & 15);
-    if (gr < T) g_lane = gh[gr * gst];
-  }
-
+  const int g = lane >> 2, c = lane & 3;
   const int n_tiles = (nv + BK - 1) / BK;
+
+  // Q and the first K/V stage: one cp.async group.
+  fetch_tile(Qs, qh, q0, T, qst);
+  fetch_tile(KV, kh, 0, T, kst);
+  fetch_tile(KV + TILE, vh, 0, T, vst);
+  cp_async_commit();
+
+  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;  // this lane's two query rows
+  float gate0 = 0.f, gate1 = 0.f;
+  if (BIAS) {
+    if (r0 < T) gate0 = gh[r0 * gst];
+    if (r1 < T) gate1 = gh[r1 * gst];
+  }
+  const float* pb0 = BIAS ? pb_h + (size_t)min(r0, T - 1) * T : nullptr;
+  const float* pb1 = BIAS ? pb_h + (size_t)min(r1, T - 1) * T : nullptr;
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile_bf16(Ks, kh, k0, T, kst);
-    load_tile_bf16(Vs, vh, k0, T, vst);
+    // Tile kt + 1 into the other stage while tile kt is multiplied (that
+    // stage's last readers passed the barrier at the end of the last tile).
+    if (kt + 1 < n_tiles) {
+      __nv_bfloat16* nxt = KV + ((kt + 1) & 1) * 2 * TILE;
+      fetch_tile(nxt, kh, k0 + BK, T, kst);
+      fetch_tile(nxt + TILE, vh, k0 + BK, T, vst);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt (and Q) landed
     __syncthreads();
+    const __nv_bfloat16* Ks = KV + (kt & 1) * 2 * TILE;
+    const __nv_bfloat16* Vs = Ks + TILE;
 
-    // S[16 rows, 64 keys] = Q K^T for this warp's rows.
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, Ks + n * 16 * LDH + kk * 16, LDH);
-        wmma::mma_sync(acc, qa[kk], kb, acc);
-      }
-      wmma::store_matrix_sync(S + warp * 16 * LDS + n * 16, acc, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
+    // The bias form's pb values for this lane's logits, loaded before the
+    // product so that their latency (L2) overlaps it.
+    float pbv[BK / 8][4];
     if (BIAS) {
-      // S = S / sqrt(D) + gate * pb over the warp's 16 x 64 logits: each
-      // step reads 32 consecutive keys of one pb row. Rows >= T and keys
-      // >= n_valid (masked below) are not read.
-#pragma unroll 4
-      for (int it = 0; it < 32; ++it) {
-        const int row = it >> 1, col = ((it & 1) << 5) + lane;
-        const int qr = q0 + warp * 16 + row, kc = k0 + col;
-        const float g = __shfl_sync(0xffffffffu, g_lane, row);
-        float* sp = S + (warp * 16 + row) * LDS + col;
-        const float bias = (qr < T && kc < nv) ? g * pb_h[(size_t)qr * T + kc] : 0.f;
-        *sp = *sp * SCALE + bias;
-      }
-      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * c + (e & 1);
+          pbv[j][e] = key < nv ? __ldg((e < 2 ? pb0 : pb1) + key) : 0.f;
+        }
     }
 
-    // Online softmax over this tile, two lanes per row.
-    float s[32];
-    float mx = NEG;
+    // S = Q K^T: n8 tile j is keys 8j .. 8j + 7; one ldmatrix.x4 of K rows
+    // gives the B fragments of two k16 steps. The Q fragments of those two
+    // steps are read from shared memory again for every tile (8 registers,
+    // not 16: the no-bias form then fits 128 without a spill).
+    float s[BK / 8][4];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = 2 * j + half;
-      s[j] = (k0 + c < nv) ? (BIAS ? srow[c] : srow[c] * SCALE) : NEG;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    const float alpha = expf(m_i - m_new);
-    float rs = 0.f;
+    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(s[j] - m_new);
-      rs += p;
-      prow[2 * j + half] = __float2bfloat16(p);
-      o[j] *= alpha;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    l_i = l_i * alpha + rs;
-    m_i = m_new;
-    __syncwarp();
-
-    // S[16 rows, 64 dims] = P V for this warp's rows.
+    for (int kk = 0; kk < D / 16; kk += 2) {
+      unsigned qa0[4], qa1[4];
+      const __nv_bfloat16* qrow = Qs + (16 * warp + (lane & 15)) * LDH + 8 * (lane >> 4);
+      ldmatrix_x4(qa0, qrow + 16 * kk);
+      ldmatrix_x4(qa1, qrow + 16 * kk + 16);
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vb;
-        wmma::load_matrix_sync(pa, QP + warp * 16 * LDH + kk * 16, LDH);
-        wmma::load_matrix_sync(vb, Vs + kk * 16 * LDH + n * 16, LDH);
-        wmma::mma_sync(acc, pa, vb, acc);
+      for (int j = 0; j < BK / 8; ++j) {
+        unsigned kb[4];
+        ldmatrix_x4(kb, Ks + (8 * j + (lane & 7)) * LDH + 16 * kk + 8 * (lane >> 3));
+        mma_bf16(s[j], qa0, kb[0], kb[1]);
+        mma_bf16(s[j], qa1, kb[2], kb[3]);
       }
-      wmma::store_matrix_sync(S + warp * 16 * LDS + n * 16, acc, LDS, wmma::mem_row_major);
     }
-    __syncwarp();
+
+    // Scale, bias and key mask, in registers.
+    const bool ragged = k0 + BK > nv;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) o[j] += srow[2 * j + half];
-    __syncwarp();
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * c + (e & 1);
+        float x = s[j][e] * SCALE;
+        if (BIAS) x += (e < 2 ? gate0 : gate1) * pbv[j][e];
+        s[j][e] = ragged && key >= nv ? NEG : x;
+      }
+    }
+
+    // Online softmax over this tile: a row's 64 logits lie in the four
+    // lanes of a quad.
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f((m0 - mn0) * LOG2E), alpha1 = exp2f((m1 - mn1) * LOG2E);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+    unsigned pa[BK / 16][4];  // P as the A fragments of the p.v product
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p0 = exp2f((s[j][0] - mn0) * LOG2E), p1 = exp2f((s[j][1] - mn0) * LOG2E);
+      const float p2 = exp2f((s[j][2] - mn1) * LOG2E), p3 = exp2f((s[j][3] - mn1) * LOG2E);
+      rs0 += p0 + p1;
+      rs1 += p2 + p3;
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * alpha0 + rs0;
+    l1 = l1 * alpha1 + rs1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= alpha0;
+      o[j][1] *= alpha0;
+      o[j][2] *= alpha1;
+      o[j][3] *= alpha1;
+    }
+
+    // O += P V: V rows are keys, read transposed; one ldmatrix.x4.trans
+    // gives the B fragments of two n8 tiles (dims) of one k16 step (keys).
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < D / 8; j += 2) {
+        unsigned vb[4];
+        ldmatrix_x4_trans(vb, Vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDH + 8 * j +
+                                  8 * (lane >> 4));
+        mma_bf16(o[j], pa[kk], vb[0], vb[1]);
+        mma_bf16(o[j + 1], pa[kk], vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
   }
 
-  const float den = fmaxf(l_i, 1e-30f);
+  // The quad's row sums, then the output straight from registers.
 #pragma unroll
-  for (int j = 0; j < 32; ++j) srow[2 * j + half] = o[j] / den;
-  __syncthreads();
-  for (int i = threadIdx.x; i < BQ * 8; i += THREADS) {
-    const int row = i >> 3, c = i & 7;
-    if (q0 + row >= T) continue;
-    const float* src = S + row * LDS + c * 8;
-    __align__(16) __nv_bfloat16 pk[8];
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) pk[e] = __float2bfloat16(src[e]);
-    *reinterpret_cast<uint4*>(oh + (q0 + row) * ost + c * 8) =
-        *reinterpret_cast<const uint4*>(pk);
+  for (int j = 0; j < D / 8; ++j) {
+    if (r0 < T)
+      *reinterpret_cast<unsigned*>(oh + r0 * ost + 8 * j + 2 * c) =
+          pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
+    if (r1 < T)
+      *reinterpret_cast<unsigned*>(oh + r1 * ost + 8 * j + 2 * c) =
+          pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
   }
 }
 
 // Grid (query tiles, H / G, B); each CTA serves G consecutive heads of one
 // batch element in turn (G = 1 outside the grouped form).
 template <bool BIAS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, BIAS ? 2 : 4)
 attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, Strides sq,
                  const __nv_bfloat16* __restrict__ k, Strides sk,
                  const __nv_bfloat16* __restrict__ v, Strides sv,
                  const int* __restrict__ n_valid,
                  const float* __restrict__ pb, const float* __restrict__ gate, Strides sg,
                  __nv_bfloat16* __restrict__ out, Strides so, int T, int G) {
-  // QP holds the Q tile, then each warp's probabilities P over its own 16
-  // rows (Q lives in registers by then). S holds each warp's logits, then its
-  // p.v product, then the normalised output tile.
-  __shared__ __align__(128) __nv_bfloat16 QP[BQ * LDH];
-  __shared__ __align__(128) __nv_bfloat16 Ks[BK * LDH];
-  __shared__ __align__(128) __nv_bfloat16 Vs[BK * LDH];
-  __shared__ __align__(128) float S[BQ * LDS];
+  // The Q tile and two (K, V) stages: 46,080 bytes.
+  __shared__ __align__(128) __nv_bfloat16 Qs[TILE];
+  __shared__ __align__(128) __nv_bfloat16 KV[4 * TILE];
 
   const int b = blockIdx.z, h0 = blockIdx.y * G, q0 = blockIdx.x * BQ;
   const int nv = clamp_valid(n_valid, b, T);
@@ -304,8 +395,8 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, Strides sq,
       zero_tile_bf16(oh, q0, T, so.t);
       continue;
     }
-    if (hh) __syncthreads();  // the previous head's output is written out of S
-    attend_bf16<BIAS>(QP, Ks, Vs, S, q + b * sq.b + h * sq.h, sq.t, k + b * sk.b + h * sk.h,
+    if (hh) __syncthreads();  // the previous head's readers of Qs are done
+    attend_bf16<BIAS>(Qs, KV, q + b * sq.b + h * sq.h, sq.t, k + b * sk.b + h * sk.h,
                       sk.t, v + b * sv.b + h * sv.h, sv.t, oh, so.t,
                       BIAS ? pb + (size_t)h * T * T : nullptr,
                       BIAS ? gate + b * sg.b + h * sg.h : nullptr, sg.t, q0, nv, T);

@@ -13,11 +13,14 @@ columns on the left. Products accumulate in float32; in bf16 each product is
 rounded to the input dtype before its bias is added, as in the Pallas kernel.
 The kernel is CUDA C++ for sm_90a (``fadtk_tpu_torch/csrc/fused_resnet_causal.cu``;
 its header says what bounds it and how it is laid out), built at first use
-(``ops/build.py``) and loaded with ctypes: float32 on the CUDA cores, bf16 on
-the tensor cores (``mma.sync`` bf16 -> float32). Each form reads the weights
-in its own layout, prepared once per weight set and cached
-(``kernel_weights``): float32 output-channel-major copies, or the bf16
-weights packed in the tensor cores' fragment order.
+(``ops/build.py``) and loaded with ctypes. Both forms run on the tensor
+cores: float32 as 3xTF32 (each product taken three times on TF32 operands
+split into hi and lo parts, ``a_lo·b_hi + a_hi·b_lo + a_hi·b_hi``, float32
+accumulation), bf16 as ``mma.sync`` bf16 -> float32. Each form reads the
+weights in its own layout, prepared once per weight set and cached
+(``kernel_weights``): split into TF32 hi and lo parts and packed in the
+``m16n8k8`` fragment order (float32), or packed in the ``m16n8k16``
+fragment order (bf16).
 
 Routing is by the tensor's device, and only by it:
 
@@ -91,16 +94,45 @@ def pack_fragments(w: torch.Tensor) -> torch.Tensor:
     return torch.gather(rows, 3, cols.expand(n // 8, k // 16, 32, 4)).contiguous()
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds: the low 13 bits of
+    the result are zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``: their sum
+    is ``x`` within 2^-22 relative, each exactly a TF32 value."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def pack_tf32_fragments(w: torch.Tensor) -> torch.Tensor:
+    """(N, K) float32 weights, as ``[out][in]``, split into TF32 hi and lo
+    parts and laid out in the order ``mma.sync.m16n8k8`` (tf32) takes its B
+    operand: (N/8, K/8, 32 lanes, 4). Lane l of n8 tile i and k8 tile j
+    holds ``hi, lo`` of ``w[8i + l//4, 8j + l%4 + (0, 4)]`` as
+    ``(hi0, hi4, lo0, lo4)``: one 16-byte load per lane and fragment."""
+    n, k = w.shape
+    lane = torch.arange(32, device=w.device)
+    cols = (lane % 4)[:, None] + torch.tensor([0, 4], device=w.device)  # (32, 2)
+
+    def pick(a):
+        tiles = a.reshape(n // 8, 8, k // 8, 8).permute(0, 2, 1, 3)  # (N/8, K/8, 8, 8)
+        return torch.gather(tiles[:, :, lane // 4], 3, cols.expand(n // 8, k // 8, 32, 2))
+
+    hi, lo = split_tf32(w)
+    return torch.cat([pick(hi), pick(lo)], dim=3).contiguous()
+
+
 def _build_weights(w1, b1, w2, b2, wsc, bsc) -> tuple[torch.Tensor, ...]:
     biases = tuple(v.float().contiguous() for v in (b1, b2, bsc))
-    if w1.dtype == torch.bfloat16:
-        ch, c, _ = w1.shape
-        w1r = w1.permute(0, 2, 1).reshape(ch, 3 * c)  # K = (tap, channel)
-        packed = tuple(pack_fragments(w) for w in (w1r, w2, wsc))
-    else:
-        packed = (w1.float().permute(1, 2, 0).contiguous(),  # (C, 3, Ch)
-                  w2.float().t().contiguous(),  # (Ch, C)
-                  wsc.float().t().contiguous())  # (C, C)
+    ch, c, _ = w1.shape
+    w1r = w1.permute(0, 2, 1).reshape(ch, 3 * c)  # K = (tap, channel)
+    pack = pack_fragments if w1.dtype == torch.bfloat16 else pack_tf32_fragments
+    packed = tuple(pack(w) for w in (w1r, w2, wsc))
     return packed[0], biases[0], packed[1], biases[1], packed[2], biases[2]
 
 
@@ -181,8 +213,8 @@ def fused_resnet_causal(
     return out
 
 
-# Kernel launches since the last reset, of the float32 kernel and of the bf16
-# tensor-core one (``chip_smoke.py`` zeroes them and reads them around the main
+# Kernel launches since the last reset, of the float32 (3xTF32) kernel and of
+# the bf16 one (``chip_smoke.py`` zeroes them and reads them around the main
 # path to show the path went through the kernel).
 fused_resnet_causal.launches = 0
 fused_resnet_causal.bf16_launches = 0

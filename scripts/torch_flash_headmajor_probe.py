@@ -10,7 +10,8 @@ Builds the kernel, prints the ptxas report (registers, shared memory,
 spills) and the grouped form's G, and for bf16 and f32 at B=16 T=499 H=12
 and a small ragged case prints, per form, the max abs error against the
 plain twin on valid rows, finiteness, whether fully padded 64-row tiles are
-zero, and the mean CUDA-event time of 20 launches. chip_smoke.py is the full
+zero, and the mean CUDA-event time of 20 launches; SDPA on the head-major
+tensors with a boolean key mask is timed beside them. chip_smoke.py is the full
 check; this is the short first call for a kernel edit.
 """
 
@@ -84,6 +85,11 @@ def main() -> None:
                           lambda: fa.flash_attention_reference(*qkv, nv, *extra), nv, t, True)
             check(f"{dtype} {b_} {t} {h} K2 grouped",
                   lambda: fa.flash_attention(*heads, nv, grouped=True),
+                  lambda: fa.flash_attention_reference(*heads, nv), nv, t, True)
+            key_live = (torch.arange(t, device=dev)[None, :] < nv[:, None].long())[:, None, None]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            check(f"{dtype} {b_} {t} {h} SDPA (bool key mask; vs the no-bias twin)",
+                  lambda: sdpa(*heads, attn_mask=key_live),
                   lambda: fa.flash_attention_reference(*heads, nv), nv, t, True)
     print("launches", fa.flash_attention.launches, fa.flash_attention.bias_launches,
           fa.flash_attention.grouped_launches)

@@ -214,3 +214,44 @@ def test_kernel_strided_equals_contiguous_on_card():
     bad = torch.zeros((b, h, t, 68), device=dev, dtype=torch.bfloat16)[..., :64]  # 136 B rows
     with pytest.raises(ValueError, match="16-byte aligned rows"):
         fa.flash_attention(bad, bad, bad, nv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "head-major", "strided"])
+@pytest.mark.parametrize("form", ["plain", "bias", "grouped"])
+@pytest.mark.parametrize("t", [499, 512])
+def test_kernel_at_tile_edges_on_card(t, form, layout):
+    """Every bf16 form at the n_valid that sit on the 64-key tile edges (1,
+    63, 64, 65, 127, 128, T-1, T), at T = 499 and at T = 512, a multiple of
+    the tile, in the packed layout (K1, K1b), head-major (K2) and through
+    the head-split views of packed tensors. The grouped grid is head-major
+    only (the packed entry has none): its packed case runs the plain one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    b, h = 8, 12
+    dev = torch.device("cuda")
+    nv_list = [1, 63, 64, 65, 127, 128, t - 1, t]
+    nv = torch.tensor(nv_list, dtype=torch.int32, device=dev)
+    q, k, v, pb, gate = _inputs(b, t, h, seed=t + len(form))
+    q, k, v = (torch.from_numpy(x).to(dev, torch.bfloat16) for x in (q, k, v))
+    pb, gate = torch.from_numpy(pb).to(dev), torch.from_numpy(gate).to(dev)
+    bias = form == "bias"
+    if layout == "packed":
+        q, k, v = (x.transpose(1, 2).reshape(b, t, h * 64).contiguous() for x in (q, k, v))
+        extra = (pb, gate.transpose(1, 2).contiguous()) if bias else (None, None)
+        got = fa.flash_attention_packed(q, k, v, nv, *extra, num_heads=h)
+        want = fa.flash_attention_packed_reference(q, k, v, nv, *extra, num_heads=h)
+        got, want = (x.view(b, t, h, 64).transpose(1, 2) for x in (got, want))
+    else:
+        if layout == "strided":
+            q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+        extra = (pb, gate) if bias else (None, None)
+        got = fa.flash_attention(q, k, v, nv, *extra, grouped=form == "grouped")
+        want = fa.flash_attention_reference(q, k, v, nv, *extra)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    _valid_rows_close(got, want, nv_list, ATOL["bfloat16"])
+    for i, n in enumerate(nv_list):
+        dead = -(-n // 64) * 64
+        assert (got[i, :, dead:] == 0).all()

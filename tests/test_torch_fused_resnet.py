@@ -200,6 +200,11 @@ def test_cached_weight_layout_equals_the_per_call_one(c, dtype):
     for a, b in zip(first, fresh):
         assert a.dtype == b.dtype and a.is_contiguous() and torch.equal(a, b)
     assert [t.dtype for t in first[1::2]] == [torch.float32] * 3
+    # bf16: the m16n8k16 fragment order; float32: TF32 hi and lo parts in
+    # the m16n8k8 order; w1's K is (tap, channel)
+    pack = fr.pack_fragments if dtype == "bfloat16" else fr.pack_tf32_fragments
+    w1r = w[0].permute(0, 2, 1).reshape(c // 2, 3 * c)
+    assert [torch.equal(a, pack(b)) for a, b in zip(first[::2], (w1r, w[2], w[4]))] == [True] * 3
     w[2].mul_(1)
     assert fr.kernel_weights(*w) is not first and fr.kernel_weights.builds == before + 2
     # the model passes fresh views (weight[:, :, 0]) of the same parameters
