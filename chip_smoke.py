@@ -42,7 +42,10 @@ Phases:
      even/odd fold of its periodic-window bases; ``ln_offset`` at VGGish's
      bases (W=400 in a 512-point DFT: no fold; F=257, M=64) on 256 x 96
      contiguous frames; ``db_clamp`` at CLAP's (W=1024, hop 480, F=513, M=64,
-     48 kHz; folded) on B=16 x 1001 contiguous frames; the other two modes on
+     48 kHz; folded) on B=16 x 1001 contiguous frames, and on the strided
+     view of the reflect-padded signal at the batch one CLAP forward takes
+     (32 chunks): CLAP-LAION's 48 kHz / hop 480 / 1001 frames and MS-CLAP's
+     44.1 kHz / hop 320 / 965 frames; the other two modes on
      Whisper's strided frames; ragged tiles (N = 1, 65, 130) through both
      templates. The library yardstick is the chain torch.stft (periodic
      Hann) -> abs()² -> mel matmul -> clamp/log on the same signal; the
@@ -71,18 +74,24 @@ Phases:
    of whisper-large, the widest published geometry (d=1280, 32+32 layers, 20
    heads; random weights drawn on the card), each in f32 and bf16, with the
    device time by kernel and the idle share;
-7. the main paths through the CLI (``fadtk_tpu_torch.cli.main.main``) on two
+7. the CLAP variants through their model classes, f32 on the card against
+   f32 on the CPU, same weights, one 10 s clip (ten chunks): clap-laion-music
+   (HTSAT-base, the widest published CLAP tower), clap-laion-audio and
+   clap-2023; then a batch-32 forward of each (frontend included) in f32
+   and bf16, with the device time by kernel, the idle share and K3's share;
+8. the main paths through the CLI (``fadtk_tpu_torch.cli.main.main``) on two
    generated datasets of 16 WAV clips each (full 10 s and ragged 2-9 s clips,
    some at 44.1 kHz so the host resampler runs): w2v2-base and
    wavlm-base-plus in f32 and ``--bf16``, MERT-v1-95M ``--bf16`` (resampled to
    24 kHz), encodec-emb in f32 and ``--bf16`` with the knob on,
    encodec-emb-48k ``--bf16``, dac-44kHz ``--bf16``, whisper-base in f32 and
-   ``--bf16`` and vggish ``--bf16``. Every kernel launch count is set to 0
+   ``--bf16``, vggish ``--bf16``, clap-laion-music in f32 and ``--bf16`` and
+   clap-2023 ``--bf16``. Every kernel launch count is set to 0
    just before each run and read just after it: K1/K1b must launch 12 times
    per speech device batch, K4 (f32) or K4b (its bf16 tensor-core form) 4
    times per encodec-emb forward, K3 once per
-   whisper forward, and no kernel elsewhere;
-8. the device pipeline through the CLI (``--device-pipeline``: no embedding
+   whisper or CLAP forward, and no kernel elsewhere;
+9. the device pipeline through the CLI (``--device-pipeline``: no embedding
    caches, statistics on the card) on the same two datasets: w2v2-base and
    wavlm-base-plus in f32 and ``--bf16``, and w2v2-base f32 with ``--batch 4``
    and a checkpoint every 4 files. K1 must launch 12 times per device batch
@@ -93,7 +102,19 @@ Phases:
    (``PIPE_TOL``); for w2v2-base f32 the gap is split into its sources
    (``scripts/torch_pipeline_gap_probe.py``); the pipeline's audio-s/s is
    printed beside the cached path's embed-stage rate;
-9. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+10. the scoring modes through the CLI on w2v2-base's f32 cache from phase 8:
+   ``--inf``, ``--indiv``, ``--inf --device-scoring`` and ``--indiv
+   --device-scoring`` (no kernel may launch). Every device per-song score
+   lies within 2e-2 relative of the host float64 one; the device trace step,
+   fed the host sweep's own subsamples, lies within 1e-3 of the host float64
+   FAD of the same rows below n = d (the top n - 1 eigenvalues) and at
+   n >= 4d (the JAX package's Newton-Schulz trace printed beside); then the
+   host and device FAD-inf sweeps (25 steps) on a generated float16 frame
+   matrix of 100 000 x 768, the device sweep twice (its points must be
+   equal), and per-song host against device on 1 000 songs of 500 frames x
+   768, through ``score_inf`` / ``score_individual``,
+   timed beside the card's name and power limit;
+11. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -158,6 +179,8 @@ PIPE_TOL = {"float32": {"mu": 1e-3, "cov": 5e-3, "score": 1e-3},
 # of the CUDA cores (67 TFLOP/s) and 3xTF32 on the tensor cores, three TF32
 # products (495 TFLOP/s) of error-compensated operands for one float32-accurate
 # product, 165 TFLOP/s.
+# Chunks per CLAP forward (models/clap_laion.py, clap_ms.py: BATCH).
+CLAP_BATCH = 32
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
@@ -537,7 +560,8 @@ def check_log_mel(torch, k3, label: str, frames, bases, log_mode: str, log_offse
 
 def k3_path_checks(torch, k3) -> dict:
     """K3 in its three modes at the mel families' geometries, and ragged
-    tiles. Returns the kernels-line entry of Whisper's B=16 call."""
+    tiles. Returns the kernels-line entries of Whisper's B=16 call and of the
+    two CLAP frontends' B=32 calls, by family."""
     import torch.nn.functional as F
 
     from fadtk_tpu_torch.dsp import mel as dmel
@@ -586,6 +610,21 @@ def k3_path_checks(torch, k3) -> dict:
                       stft_power(clap, 1024, 480, 1024, True).transpose(1, 2) @ cb[2], 1e-10)))
     del audio, sig, frames, padded, clap
 
+    # CLAP's frontends as the models call them: one forward's 32 chunks, the
+    # frames read through the strided view of the reflect-padded signal.
+    clap_entries = {}
+    for key, sr, seconds, hop in (("clap-laion", 48000, 10, 480), ("clap-2023", 44100, 7, 320)):
+        chunks = torch.randn((CLAP_BATCH, sr * seconds), generator=g, device=dev) * 0.1
+        cb = dmel._device_bases("torchlibrosa", dev, 1024, sr, 64, 50.0, 14000.0)
+        frames = dmel.torchlibrosa_frames(chunks, 1024, hop)
+        clap_entries[key] = check_log_mel(
+            torch, k3, f"K3 db_clamp {key} B={CLAP_BATCH} x {frames.shape[1]} frames, hop {hop} "
+            "(strided view)", frames, cb, "db_clamp",
+            in_bytes=4 * CLAP_BATCH * (sr * seconds + 1024),
+            library=lambda: 10.0 * torch.log10(torch.clamp_min(
+                stft_power(chunks, 1024, hop, 1024, True).transpose(1, 2) @ cb[2], 1e-10)))
+        del chunks, frames
+
     # The other two modes on Whisper's strided frames, and ragged frame tiles
     # (three clips) through both templates.
     wf = dmel.whisper_frames(torch.randn((2, dmel.WHISPER_SAMPLES), generator=g, device=dev) * 0.1)
@@ -597,7 +636,7 @@ def k3_path_checks(torch, k3) -> dict:
         check_log_mel(torch, k3, f"K3 ln_offset ragged B=3 N={n} (VGGish bases, unfolded)",
                       torch.randn((3, n, 400), generator=g, device=dev) * 0.1, vb, "ln_offset",
                       0.01)
-    return whisper
+    return {"whisper": whisper, **clap_entries}
 
 
 def card_vs_cpu(torch, model_name: str):
@@ -836,6 +875,52 @@ def whisper_forward_breakdown(torch, size: str, module=None, runs: int = 10) -> 
     del m16, module
 
 
+def clap_forward_breakdown(torch, model) -> None:
+    """Batch-32 forwards of ``model``'s chunks (10 s at 48 kHz for
+    clap-laion, 7 s at 44.1 kHz for clap-2023), the float32 frontend (one K3
+    launch) included: median CUDA-event time in f32 and bf16, then one
+    profiled forward each, and K3's share of the forward's time (K3 timed
+    alone on the same frames, CUDA events both)."""
+    import copy
+
+    from fadtk_tpu_torch.models.base import cast_module
+    from fadtk_tpu_torch.models.clap_laion import clap_laion_forward
+    from fadtk_tpu_torch.models.clap_ms import clap_ms_forward
+
+    from fadtk_tpu_torch.dsp import mel as dmel
+    from fadtk_tpu_torch.ops.fused_log_mel import fused_log_mel
+
+    if model.name == "clap-2023":
+        def forward(module, x):
+            return clap_ms_forward(module, model.mel, x)
+        seconds, hop = 7, model.mel.hop
+    else:
+        forward, seconds, hop = clap_laion_forward, 10, 480
+    m16 = cast_module(copy.deepcopy(model.module), torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    chunks = torch.randn((CLAP_BATCH, seconds * model.sr), generator=g, device="cuda") * 0.1
+    frames = dmel.torchlibrosa_frames(chunks, 1024, hop)
+    bases = dmel._device_bases("torchlibrosa", frames.device, 1024, model.sr, 64, 50.0, 14000.0)
+    k3_ms = cuda_ms(torch, lambda: fused_log_mel(frames, *bases, log_mode="db_clamp"))
+
+    def run(module):
+        with torch.inference_mode():
+            return forward(module, chunks)
+
+    for name, module in (("f32", model.module), ("bf16", m16)):
+        out = run(module)
+        if out.shape != (CLAP_BATCH, model.num_features) or not torch.isfinite(out).all():
+            raise AssertionError(f"{model.name} {name}: {tuple(out.shape)} or non-finite")
+        ms = cuda_ms(torch, lambda: run(module), runs=10)
+        print(f"{model.name} forward {name}: {ms:.3f} ms per batch of {CLAP_BATCH} x {seconds} s "
+              f"= {CLAP_BATCH * seconds / ms * 1e3:.1f} chunk-s/s", flush=True)
+        profile_forward(torch, f"{model.name} {name} B={CLAP_BATCH}", lambda: run(module))
+        print(f"[{model.name} {name} B={CLAP_BATCH}] K3 (the frontend's one launch, timed alone "
+              f"on the same frames) {k3_ms:.4f} ms = {k3_ms / ms:.3f} of the forward's time",
+              flush=True)
+    del m16, chunks, frames
+
+
 def make_dataset(root: Path, name: str, seed: int) -> float:
     """16 WAV clips: 8 full 10 s, 8 ragged 2-9 s; every 4th at 44.1 kHz.
     Returns the total seconds of audio."""
@@ -862,9 +947,10 @@ def path_shape(model, lengths: list[int]) -> tuple[list[int], int]:
     """Frames of each clip's embedding and the device forwards that one
     ``embed_batch`` call over a dataset's clips (converted lengths in
     samples) makes, by family: whisper's 2 frames per 30 s window (16 windows
-    to a forward), vggish's 0.96 s examples (256 to a forward), the speech
-    bucketing, encodec-emb's groups of one exact length (64 to a forward,
-    320-sample hop), encodec-emb-48k's full 1 s segments (150 frames each)
+    to a forward), CLAP's chunk per 1 s hop start (32 to a forward),
+    vggish's 0.96 s examples (256 to a forward), the speech bucketing,
+    encodec-emb's groups of one exact length (64 to a forward, 320-sample
+    hop), encodec-emb-48k's full 1 s segments (150 frames each)
     and tail, dac-44kHz's 5 s windows at 50 % overlap (430 frames each, 8 to
     a forward)."""
     from collections import Counter
@@ -874,6 +960,9 @@ def path_shape(model, lengths: list[int]) -> tuple[list[int], int]:
 
     if model.name.startswith("whisper-"):
         return [2] * len(lengths), -(-len(lengths) // model.BATCH)
+    if model.name.startswith("clap-"):
+        chunks = [-(-n // model.sr) for n in lengths]  # one per 1 s hop start
+        return chunks, -(-sum(chunks) // model.BATCH)
     if model.name == "vggish":
         examples = [vggish_num_examples(n) for n in lengths]
         return examples, -(-sum(examples) // model.EXAMPLE_BATCH)
@@ -995,7 +1084,8 @@ def read_counts(kernels) -> dict:
 
 def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
     """Every main path through the CLI, on two generated datasets. Returns
-    the launches of each kernel summed over the runs that must launch it,
+    the launches of each kernel summed over the runs that must launch it (K3
+    also by family: ``K3 whisper``, ``K3 clap-laion``, ``K3 clap-2023``),
     each run's results by cache key, and the seconds of audio."""
     os.environ.pop("FADTK_TPU_BF16", None)
     os.environ.pop("FADTK_TPU_FLASH_F32", None)
@@ -1010,8 +1100,10 @@ def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
             ("encodec-emb", False, fused, ("K4", 4)), ("encodec-emb", True, fused, ("K4b", 4)),
             ("encodec-emb-48k", True, None, None), ("dac-44kHz", True, None, None),
             ("whisper-base", False, None, ("K3", 1)), ("whisper-base", True, None, ("K3", 1)),
-            ("vggish", True, None, None)]
-    totals = dict.fromkeys(KERNEL_KEYS, 0)
+            ("vggish", True, None, None),
+            ("clap-laion-music", False, None, ("K3", 1)),
+            ("clap-laion-music", True, None, ("K3", 1)), ("clap-2023", True, None, ("K3", 1))]
+    totals = dict.fromkeys((*KERNEL_KEYS, "K3 whisper", "K3 clap-laion", "K3 clap-2023"), 0)
     cached = {}
     for model_name, bf16, env, kernel in runs:
         got = cli_run(torch, kernels, work, seconds, model_name, bf16, env)
@@ -1022,8 +1114,12 @@ def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
         if {k: got[k] for k in want} != want:
             raise AssertionError(f"{model_name} bf16={bf16}: launches {got}, expected {want} "
                                  f"({got['forwards']} device forwards)")
-        for k in totals:
+        for k in KERNEL_KEYS:
             totals[k] += got[k]
+        family = next((f for f in ("whisper", "clap-laion", "clap-2023")
+                       if model_name.startswith(f)), None)
+        if family:
+            totals[f"K3 {family}"] += got["K3"]
     return totals, cached, seconds
 
 
@@ -1145,6 +1241,188 @@ def pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -> d
     return totals
 
 
+# Device scoring against the host float64 paths (metric/device_scoring.py):
+# per-song scores within the JAX package's own bound
+# (tests/test_device_scoring.py), near-zero scores guarded at 1e-6; the
+# trace step on the host's own subsample within the float32 path's ~1e-3.
+PER_SONG_RTOL = 2e-2
+TRACE_STEP_RTOL = 1e-3
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-6)
+
+
+def _per_song_gap(host_csv: Path, device_csv: Path) -> tuple[float, int]:
+    """The largest relative gap of the device per-song scores to the host
+    ones, over every song of the two CSVs (which must list the same files)."""
+    host = dict(row.split(",") for row in host_csv.read_text().split("\n"))
+    dev = dict(row.split(",") for row in device_csv.read_text().split("\n"))
+    if set(host) != set(dev) or not host:
+        raise AssertionError(f"per-song CSVs list other files: {len(host)} / {len(dev)}")
+    return max(_rel(float(dev[f]), float(h)) for f, h in host.items()), len(host)
+
+
+def scoring_cli(torch, kernels, work: Path, *flags) -> tuple[Path, float]:
+    """One w2v2-base scoring run of the CLI over the two datasets' cached f32
+    embeddings (none is computed again); no kernel may launch. Returns the
+    CSV and the run's seconds."""
+    from fadtk_tpu_torch.cli import main as cli
+
+    csv = work / f"scoring{'-'.join(flags)}.csv"
+    sys.argv = ["fadtk", "w2v2-base", str(work / "baseline"), str(work / "eval"), str(csv),
+                *flags]
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    try:
+        cli.main()
+    except SystemExit as e:  # --indiv exits 0 after writing its CSV
+        if e.code not in (0, None):
+            raise AssertionError(f"scoring {flags}: exit {e.code}") from e
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    if any(launches.values()) or not csv.exists():
+        raise AssertionError(f"scoring {flags}: launches {launches}, CSV written {csv.exists()}")
+    print(f"[scoring {' '.join(flags)}] {secs:.3f} s", flush=True)
+    return csv, secs
+
+
+def scoring_checks(torch, kernels, work: Path) -> None:
+    """``--inf`` and ``--indiv``, on the host and with ``--device-scoring``,
+    through the CLI on w2v2-base's f32 cache; the device per-song scores
+    against the host's, and the device trace step on the host sweep's own
+    subsamples in both of its branches."""
+    import numpy as np
+
+    from fadtk_tpu_torch.metric import device_scoring as ds
+    from fadtk_tpu_torch.metric.frechet import FrechetBaseline, _ns_sqrt_sym
+    from fadtk_tpu_torch.metric.stats import (
+        calc_embd_statistics,
+        welford_finalize,
+        welford_init,
+        welford_update,
+    )
+    from fadtk_tpu_torch.models.registry import get_model
+    from fadtk_tpu_torch.runner.fad import FrechetAudioDistance
+
+    runs = {flags: scoring_cli(torch, kernels, work, *flags)
+            for flags in (("--inf",), ("--inf", "--device-scoring"), ("--indiv",),
+                          ("--indiv", "--device-scoring"))}
+    for flags in (("--inf",), ("--inf", "--device-scoring")):
+        row = runs[flags][0].read_text().strip().split("\n")[1].split(",")
+        score, r2 = float(row[3]), float(row[4])
+        print(f"[scoring {' '.join(flags)}] FAD-inf {score}, r2 {r2}", flush=True)
+        if not (math.isfinite(score) and math.isfinite(r2)) or row[0] != "w2v2-base":
+            raise AssertionError(f"scoring {flags}: bad CSV row {row}")
+    gap, n = _per_song_gap(runs[("--indiv",)][0], runs[("--indiv", "--device-scoring")][0])
+    print(f"[scoring --indiv] device vs host float64 per-song, {n} songs: largest relative gap "
+          f"{gap:.3e} (limit {PER_SONG_RTOL:g})", flush=True)
+    if not gap <= PER_SONG_RTOL:
+        raise AssertionError(f"device per-song scores {gap} from the host's")
+
+    # The host sweep's draws (score_inf: RandomState(seed).choice, in order),
+    # and the device trace step on the first draw below n = d (where the step
+    # keeps the top n - 1 eigenvalues), on the first at n >= 4d and on the
+    # last (where the JAX package's step takes a 30-iteration Newton-Schulz
+    # trace, printed beside the exact one).
+    fad = FrechetAudioDistance(get_model("w2v2-base"), load_model=False)
+    mu, cov = fad.load_stats(work / "baseline")
+    embeds = fad._load_embeddings(sorted((work / "eval").glob("*.*")))
+    max_n, d = embeds.shape
+    rng = np.random.RandomState(0)
+    base = FrechetBaseline(mu, cov)
+    mu1, s1, tr1 = ds._baseline(mu, cov, torch.device("cuda"))
+    checked = set()
+    ns = [int(n) for n in np.linspace(500, max_n, 25)]
+    for n in ns:
+        sub = embeds[rng.choice(max_n, size=n, replace=True)]
+        branch = "n < d" if n < d else "n >= 4d" if n >= 4 * d else None
+        if n == ns[-1]:
+            branch = "n = N, the last step"
+        elif branch is None or branch in checked:
+            continue
+        checked.add(branch)
+        host = base.distance(*calc_embd_statistics(sub))
+        st = welford_update(welford_init(d, device="cuda"), torch.from_numpy(sub).cuda().float())
+        mu2, cov2 = welford_finalize(st)
+        dev = float(ds._fad_trace_step(mu1, s1, tr1, n, d, mu2, cov2))
+        m = s1 @ cov2 @ s1
+        ev = torch.linalg.eigvalsh((m + m.T) * 0.5)
+        whole = float(ev.clamp(min=0.0).sqrt().sum())
+        kept = float(ev[max(d - (n - 1), 0):].clamp(min=0.0).sqrt().sum())
+        newton_schulz = float(torch.trace(_ns_sqrt_sym((m + m.T) * 0.5, 30)))
+        print(f"[scoring] trace step ({branch}, n={n}, d={d}): device {dev} vs host float64 "
+              f"{host}: relative {_rel(dev, host):.3e} (limit {TRACE_STEP_RTOL:g}); "
+              f"eigenvalues of s1 C2 s1 {float(ev[0]):.3e} .. {float(ev[-1]):.3e}; Tr sqrt over "
+              f"the top min(n - 1, d) {kept}, over the whole spectrum {whole}, by 30 "
+              f"Newton-Schulz iterations {newton_schulz}", flush=True)
+        if not _rel(dev, host) <= TRACE_STEP_RTOL:
+            raise AssertionError(f"trace step ({branch}) {dev} vs host {host}")
+    if len(checked) != 3:
+        raise AssertionError(f"the sweep over {max_n} frames covers {checked} only")
+
+
+def scoring_timings(torch, work: Path, smi: str) -> None:
+    """Host float64 against device scoring through the runner's entry points,
+    at a baseline-sized frame matrix and a thousand songs (generated; the
+    baseline a random full-rank Gaussian)."""
+    import numpy as np
+
+    from fadtk_tpu_torch.models.registry import get_model
+    from fadtk_tpu_torch.runner.fad import FrechetAudioDistance
+
+    rng = np.random.default_rng(SEED)
+    d, model = 768, get_model("w2v2-base")
+    n_frames, n_songs, song_len = 100_000, 1000, 500
+    root = work / "scoring"
+    (root / "songs" / "embeddings" / model.name).mkdir(parents=True)
+    a = rng.standard_normal((d, d), dtype=np.float32) / np.sqrt(d)
+    base = root / "base.npz"
+    np.savez(base, **{"w2v2-base.mu": rng.standard_normal(d) * 0.1,
+                      "w2v2-base.cov": (a @ a.T).astype(np.float64) + 0.1 * np.eye(d)})
+    frames = root / "frames.npy"
+    np.save(frames, (rng.standard_normal((n_frames, d), dtype=np.float32) * 1.1 + 0.05
+                     ).astype(np.float16))
+    for i in range(n_songs):
+        (root / "songs" / f"song{i:04d}.wav").write_bytes(b"")
+        np.save(root / "songs" / "embeddings" / model.name / f"song{i:04d}.npy",
+                (rng.standard_normal((song_len, d), dtype=np.float32) + 0.1).astype(np.float16))
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    sweeps = {}
+    for label, device in (("host float64", False), ("device", True), ("device again", True)):
+        fad = FrechetAudioDistance(model, load_model=False, device_scoring=device)
+        sweeps[label], secs = timed(lambda: fad.score_inf(base, [frames], seed=SEED))
+        print(f"[scoring timing] FAD-inf sweep, 25 steps, N={n_frames} x D={d} float16, "
+              f"{label}: {secs:.3f} s; score {sweeps[label].score}, r2 {sweeps[label].r2} "
+              f"({smi})", flush=True)
+    if sweeps["device"] != sweeps["device again"]:
+        raise AssertionError("the device FAD-inf sweep is not seed-reproducible")
+    csvs = {}
+    for label, device in (("host float64", False), ("device", True)):
+        fad = FrechetAudioDistance(model, load_model=False, device_scoring=device)
+        csvs[label], secs = timed(lambda: fad.score_individual(
+            base, root / "songs", root / f"{label.split()[0]}.csv"))
+        print(f"[scoring timing] per-song, {n_songs} songs x {song_len} frames x D={d}, "
+              f"{label}: {secs:.3f} s ({smi})", flush=True)
+    gap, n = _per_song_gap(csvs["host float64"], csvs["device"])
+    print(f"[scoring timing] device vs host float64 per-song, {n} songs: largest relative gap "
+          f"{gap:.3e} (limit {PER_SONG_RTOL:g})", flush=True)
+    if not gap <= PER_SONG_RTOL:
+        raise AssertionError(f"device per-song scores {gap} from the host's")
+    gram = torch.randn((16, 512, d), device="cuda")
+    gram = gram @ gram.transpose(1, 2)
+    ms = cuda_ms(torch, lambda: torch.linalg.eigvalsh(gram), runs=5, groups=5)
+    print(f"[scoring timing] torch.linalg.eigvalsh of one per-song batch, 16 x (512, 512) "
+          f"float32 Grams: {ms:.3f} ms ({smi})", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1197,7 +1475,7 @@ def main() -> int:
         check_kernel(torch, fa, torch.bfloat16, 499, 16, bias=True)
         k2, k2g = k2_checks(torch, fa)
         k4 = k4_path_checks(torch, fr)
-        k3_entry = k3_path_checks(torch, k3)
+        k3_entries = k3_path_checks(torch, k3)
         torch.cuda.empty_cache()
 
         for model_name in ("w2v2-base", "wavlm-base-plus", "MERT-v1-95M"):
@@ -1253,8 +1531,18 @@ def main() -> int:
         whisper_forward_breakdown(torch, "large", runs=3)
         torch.cuda.empty_cache()
 
-        phase("main paths: CLI w2v2-base, wavlm-base-plus, encodec-emb, whisper-base f32 and "
-              "--bf16; MERT, encodec-emb-48k, dac-44kHz, vggish --bf16")
+        for name in ("clap-laion-music", "clap-laion-audio", "clap-2023"):
+            phase(f"{name} f32: card vs cpu, one 10 s clip (ten chunks)")
+            sr = 44100 if name == "clap-2023" else 48000
+            clap = model_card_vs_cpu(torch, name, rng.standard_normal(10 * sr) * 0.1)
+            phase(f"{name} forward, batch {CLAP_BATCH}: f32 and bf16")
+            clap_forward_breakdown(torch, clap)
+            del clap
+            torch.cuda.empty_cache()
+
+        phase("main paths: CLI w2v2-base, wavlm-base-plus, encodec-emb, whisper-base, "
+              "clap-laion-music f32 and --bf16; MERT, encodec-emb-48k, dac-44kHz, vggish, "
+              "clap-2023 --bf16")
         launches, cached, seconds = cli_runs(torch, (fa, fr, k3), work)
 
         phase("device pipeline: CLI --device-pipeline w2v2-base, wavlm-base-plus f32 and --bf16, "
@@ -1271,6 +1559,11 @@ def main() -> int:
         for ds in ("baseline", "eval"):
             print(format_gap(f"w2v2-base f32 {ds}", split_gap(w2v2, work / ds)), flush=True)
         del w2v2
+
+        phase("scoring: CLI --inf / --indiv, host and --device-scoring, on w2v2-base's cache")
+        scoring_checks(torch, (fa, fr, k3), work)
+        phase("scoring: host float64 against device, FAD-inf sweep and per-song")
+        scoring_timings(torch, work, smi)
 
         if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
             raise AssertionError("jax was imported")
@@ -1295,7 +1588,15 @@ def main() -> int:
             {"name": "fused_log_mel (log10_clamp, Whisper B=16)", "route": "cuda",
              "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
              "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",
-             "launches": launches["K3"], **k3_entry},
+             "launches": launches["K3 whisper"], **k3_entries["whisper"]},
+            {"name": "fused_log_mel (db_clamp, CLAP-LAION 48 kHz B=32, strided view)",
+             "route": "cuda", "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
+             "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",
+             "launches": launches["K3 clap-laion"], **k3_entries["clap-laion"]},
+            {"name": "fused_log_mel (db_clamp, MS-CLAP 44.1 kHz B=32, strided view)",
+             "route": "cuda", "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
+             "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",
+             "launches": launches["K3 clap-2023"], **k3_entries["clap-2023"]},
             {"name": "flash_attention (head-major, factorized bias)", "route": "cuda",
              "source": source, "replaces": "fadtk_tpu/ops/flash_attention.py:490",
              "launches": pipeline["K2"], **k2},

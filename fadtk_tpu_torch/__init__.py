@@ -8,11 +8,13 @@ the device ``FADTK_TPU_TORCH_DEVICE`` names (default ``cuda``).
 
 - ``fadtk_tpu_torch.audio``   — WAV I/O and decode (numpy; libav for other formats).
 - ``fadtk_tpu_torch.dsp``     — the host Kaiser-sinc resampler, BS.1770 loudness meter and the
-  VGGish / Whisper log-mel frontends.
+  VGGish / Whisper / torchlibrosa (CLAP) log-mel frontends.
 - ``fadtk_tpu_torch.models``  — the speech encoder (w2v2, HuBERT, WavLM, MERT), the codec
-  encoders (EnCodec 24k/48k, DAC), VGGish and Whisper as ``nn.Module``s + registry.
+  encoders (EnCodec 24k/48k, DAC), VGGish, Whisper and HTSAT (CLAP) as ``nn.Module``s +
+  registry.
 - ``fadtk_tpu_torch.ops``     — hand-written CUDA kernels beside their plain twins.
-- ``fadtk_tpu_torch.metric``  — host statistics and the Frechet distance.
+- ``fadtk_tpu_torch.metric``  — host statistics, the Frechet distance and device scoring
+  (the FAD-inf sweep, per-song FAD).
 - ``fadtk_tpu_torch.runner``  — cache layout, batched embedding, scoring.
 - ``fadtk_tpu_torch.cli``     — ``python -m fadtk_tpu_torch``.
 """

@@ -4,18 +4,23 @@ Same command line, CSV format and summary line as ``fadtk_tpu.cli.main``
 (reference fadtk/__main__.py:9-74):
 
     python -m fadtk_tpu_torch <model> <baseline> <eval> [csv] [-w N] [--bf16]
+                              [--inf [--seed S] | --indiv] [--device-scoring [--devices N]]
                               [--frechet-method eigh|reference|newton_schulz]
                               [--device-pipeline [--batch N] [--tp T] [--devices N]]
 
-``--device-pipeline`` scores the speech family without embedding caches
-(runner/device_pipeline.py); over several GPUs it runs under ``torchrun``,
-one process per GPU (parallel/mesh.py), and rank 0 reports. ``--inf``,
-``--indiv``, ``--device-scoring`` and ``--multihost`` are accepted and exit
-with a message: they are not ported yet.
+``--inf`` extrapolates FAD-inf from seeded subsamples of the eval set and
+``--indiv`` writes per-song scores to a CSV (runner/fad.py); both read the
+embedding cache, on the host in float64 or, with ``--device-scoring``, on the
+device (metric/device_scoring.py). ``--device-pipeline`` scores the speech
+family without embedding caches (runner/device_pipeline.py). Over several GPUs
+``--device-pipeline`` and ``--device-scoring`` run under ``torchrun``, one
+process per GPU (parallel/mesh.py), and rank 0 reports. ``--multihost`` is
+accepted and exits with a message: it is not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from argparse import ArgumentParser
@@ -37,7 +42,8 @@ def main() -> None:
     ap.add_argument("eval", type=str, help="The directory to evaluate against")
     ap.add_argument("csv", type=str, nargs="?",
                     help="The CSV file to append results to. If not supplied, "
-                         "single-value results are printed to stdout")
+                         "single-value results are printed to stdout; for --indiv "
+                         "results go to 'fad-individual-results.csv'")
     ap.add_argument("-w", "--workers", type=int, default=8)
     ap.add_argument("-s", "--sox-path", type=str, default="/usr/bin/sox",
                     help="(accepted for reference compatibility; unused)")
@@ -51,7 +57,17 @@ def main() -> None:
                          "Embeddings differ slightly from float32, so "
                          "caches/stats/results key under '<model>-bf16'. "
                          "Scoring math stays float64 on host.")
-    ap.add_argument("--seed", type=int, default=0, help="(for --inf; not ported yet)")
+    ap.add_argument("--inf", action="store_true", help="Use FAD-inf extrapolation")
+    ap.add_argument("--indiv", action="store_true",
+                    help="Calculate FAD for individual songs and store the results "
+                         "in the given file")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the --inf subsampling (the reference is unseeded; "
+                         "0 by default, for reproducibility)")
+    ap.add_argument("--device-scoring", action="store_true",
+                    help="run the FAD-inf sweep / per-song scoring on the device "
+                         "(float32); several GPUs: run under torchrun, one process "
+                         "per GPU, and the frames / songs split over them")
     ap.add_argument("--device-pipeline", action="store_true",
                     help="plain-score fast path for the speech family: embed and "
                          "accumulate dataset Gaussians on the device without writing "
@@ -63,15 +79,12 @@ def main() -> None:
                          "heads / FFN columns over tp processes; the rest form the dp "
                          "axis. Must divide the number of processes")
     ap.add_argument("--devices", type=int, default=None,
-                    help="number of devices (processes) for --device-pipeline "
-                         "(default: all of the torchrun job; 1 without torchrun)")
+                    help="number of devices (processes) for --device-pipeline or "
+                         "--device-scoring (default: all of the torchrun job; 1 "
+                         "without torchrun)")
     ap.add_argument("--batch", type=int, default=None,
                     help="clips per device step for --device-pipeline (default 16 x dp)")
     not_ported = {
-        "inf": ap.add_argument("--inf", action="store_true", help="(not ported yet)"),
-        "indiv": ap.add_argument("--indiv", action="store_true", help="(not ported yet)"),
-        "device_scoring": ap.add_argument(
-            "--device-scoring", action="store_true", help="(not ported yet)"),
         "multihost": ap.add_argument("--multihost", action="store_true", help="(not ported yet)"),
     }
     args = ap.parse_args()
@@ -95,13 +108,27 @@ def main() -> None:
     if args.device_pipeline:
         _device_pipeline(args, model, baseline, eval_)
         return
-    if args.tp != 1 or args.devices is not None:
-        raise SystemExit("--tp/--devices require --device-pipeline")
+    if args.tp != 1 or (args.devices is not None and not args.device_scoring):
+        raise SystemExit("--tp/--devices require --device-pipeline "
+                         "(--devices also composes with --device-scoring)")
+    if args.device_scoring:
+        _device_scoring(args, model, baseline, eval_)
+    else:
+        _score(args, model, baseline, eval_)
+
+
+def _score(args, model, baseline, eval_, scoring_mesh=None) -> None:
+    """Cache the embeddings of both datasets (rank 0 only under a scoring
+    mesh, the others wait), then score in the mode the flags ask for."""
+    import torch.distributed as dist
 
     # 1. Cache embeddings for both datasets.
-    for d in [baseline, eval_]:
-        if Path(d).is_dir():
-            cache_embedding_files(d, model, workers=args.workers)
+    if scoring_mesh is None or scoring_mesh.rank == 0:
+        for d in [baseline, eval_]:
+            if Path(d).is_dir():
+                cache_embedding_files(d, model, workers=args.workers)
+    if scoring_mesh is not None and dist.is_initialized():
+        dist.barrier()
 
     # 2. Score.
     fad = FrechetAudioDistance(
@@ -109,20 +136,59 @@ def main() -> None:
         audio_load_worker=args.workers,
         load_model=False,
         frechet_method=args.frechet_method,
+        device_scoring=args.device_scoring,
+        scoring_mesh=scoring_mesh,
     )
-    score = fad.score(baseline, eval_)
-    _report(args, model, baseline, eval_, score, None)
+    report = scoring_mesh is None or scoring_mesh.rank == 0
+    inf_r2 = None
+    if args.inf:
+        if not Path(eval_).is_dir():
+            raise SystemExit("FAD-inf requires a directory as the evaluation dataset")
+        result = fad.score_inf(baseline, sorted(Path(eval_).glob("*.*")), seed=args.seed)
+        if report:
+            print("FAD-inf Information:", result)
+        score, inf_r2 = result.score, result.r2
+    elif args.indiv:
+        if not Path(eval_).is_dir():
+            raise SystemExit("Individual FAD requires a directory as the evaluation dataset")
+        csv_path = Path(args.csv or "fad-individual-results.csv")
+        fad.score_individual(baseline, eval_, csv_path)
+        if report:
+            log.info(f"Individual FAD scores saved to {csv_path}")
+        raise SystemExit(0)
+    else:
+        score = fad.score(baseline, eval_)
+    if report:
+        _report(args, model, baseline, eval_, score, inf_r2)
 
 
-def _device_pipeline(args, model, baseline, eval_) -> None:
+@contextlib.contextmanager
+def _job_mesh(devices: int | None, tp: int = 1):
+    """This process's mesh over the torchrun job (or dp = tp = 1 without
+    one); the process group that ``make_mesh`` joined is left on exit."""
     import torch.distributed as dist
 
     from ..parallel.mesh import make_mesh
-    from ..runner.device_pipeline import score_datasets_device
 
     launched = not dist.is_initialized()
-    mesh = make_mesh(args.devices, tp=args.tp)
+    mesh = make_mesh(devices, tp=tp)
     try:
+        yield mesh
+    finally:
+        if launched and dist.is_initialized():  # make_mesh joined torchrun's group
+            dist.destroy_process_group()
+
+
+def _device_scoring(args, model, baseline, eval_) -> None:
+    with _job_mesh(args.devices) as mesh:
+        log.info(f"device scoring mesh: dp={mesh.dp} on {mesh.device}")
+        _score(args, model, baseline, eval_, scoring_mesh=mesh)
+
+
+def _device_pipeline(args, model, baseline, eval_) -> None:
+    from ..runner.device_pipeline import score_datasets_device
+
+    with _job_mesh(args.devices, tp=args.tp) as mesh:
         log.info(f"device pipeline mesh: dp={mesh.dp} x tp={mesh.tp} on {mesh.device}")
         try:
             score = score_datasets_device(model, baseline, eval_, mesh=mesh, batch=args.batch)
@@ -130,9 +196,6 @@ def _device_pipeline(args, model, baseline, eval_) -> None:
             raise SystemExit(f"{model.name}: {e}")
         if mesh.rank == 0:
             _report(args, model, baseline, eval_, score, None)
-    finally:
-        if launched and dist.is_initialized():  # make_mesh joined torchrun's group
-            dist.destroy_process_group()
 
 
 def _report(args, model, baseline, eval_, score, inf_r2) -> None:

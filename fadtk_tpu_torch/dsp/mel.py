@@ -11,6 +11,10 @@ package's, bit for bit: each is computed in float64 and cast to float32 once.
   in one pass, the frame tensor never materialised. On CPU tensors the same
   call runs K3's plain twin. The per-clip dynamic-range clamp and the
   transpose to (B, 80, 3000) stay in torch.
+- ``torchlibrosa_log_mel`` (the CLAP towers' torchlibrosa frontend):
+  reflect-pad n_fft/2 on each side, the n_fft-sample frames at the hop as a
+  strided view, and K3 in ``db_clamp`` mode (``10·log10(max(., 1e-10))``),
+  one launch per call on a CUDA tensor, the plain twin on the CPU.
 - ``vggish_log_mel_examples`` (TF-VGGish): VGGish projects the *magnitude*
   ``sqrt(re² + im²)`` onto its mel bank, not the power K3 takes, so its
   frontend stays plain torch: ``framed_basis_matmul`` (the JAX package's
@@ -247,7 +251,7 @@ def whisper_log_mel(audio: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# torchlibrosa-style bases (CLAP frontends: laion_clap 48k, msclap 44.1k)
+# torchlibrosa-style log-mel (CLAP frontends: laion_clap 48k, msclap 44.1k)
 # --------------------------------------------------------------------------- #
 
 
@@ -256,3 +260,28 @@ def _torchlibrosa_bases(n_fft: int, sr: int, n_mels: int, fmin: float, fmax: flo
     dft_re, dft_im = _windowed_dft(n_fft, n_fft)
     mel = mel_filterbank_slaney(n_mels, n_fft // 2 + 1, sr, fmin, fmax)
     return dft_re, dft_im, mel.astype(np.float32)
+
+
+def torchlibrosa_frames(audio: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """(B, T) audio -> (B, 1 + T // hop, n_fft) float32 frames as a strided
+    view of the centred, reflect-padded signal (batch stride T + n_fft, frame
+    stride ``hop``, unit sample stride)."""
+    x = F.pad(audio.to(torch.float32)[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+    return x.unfold(-1, n_fft, hop)
+
+
+def torchlibrosa_log_mel(
+    audio: torch.Tensor, *, sr: int, n_fft: int, hop: int, n_mels: int,
+    fmin: float, fmax: float,
+) -> torch.Tensor:
+    """(B, T) -> (B, n_frames, n_mels) float32 log-mel, torchlibrosa
+    semantics: centred reflect-padded periodic-Hann STFT, power spectrum,
+    slaney mel (librosa's default), power_to_db with ref=1, amin=1e-10 and
+    top_db=None, i.e. 10·log10(max(mel, 1e-10)). The four steps are one K3
+    launch (``db_clamp``) on a CUDA tensor. Used by both CLAP audio towers
+    (reference deps laion_clap / msclap)."""
+    from ..ops.fused_log_mel import fused_log_mel
+
+    bases = _device_bases("torchlibrosa", audio.device, n_fft, sr, n_mels, float(fmin),
+                          float(fmax))
+    return fused_log_mel(torchlibrosa_frames(audio, n_fft, hop), *bases, log_mode="db_clamp")

@@ -1,11 +1,11 @@
 """Model registry: the variants ported so far, built lazily.
 
 ``fadtk_tpu.models.registry`` registers every variant the reference does
-(fadtk/model_loader.py:676-701). The port registers the speech-encoder,
-codec, VGGish and Whisper families (141 of the 146), in the JAX package's
-order:
+(fadtk/model_loader.py:676-701). The port registers the CLAP,
+speech-encoder, codec, VGGish and Whisper families (144 of the 146; CDPAM's
+two are not ported yet), in the JAX package's order:
 
-    vggish;
+    clap-2023; clap-laion-audio, clap-laion-music; vggish;
     MERT-v1-95M[-1..11] (12 = default name); encodec-emb, encodec-emb-48k;
     w2v2-base[-1..11], w2v2-large[-1..23] (24 = default);
     hubert-base[-..], hubert-large[-..];
@@ -21,6 +21,8 @@ from .base import EmbeddingModel
 
 
 def _builders() -> list[Callable[[], EmbeddingModel]]:
+    from .clap_laion import CLAPLaionModel
+    from .clap_ms import MSCLAPModel
     from .dac import DACModel
     from .encodec import EncodecEmbModel
     from .hubert import HuBERTModel
@@ -30,7 +32,12 @@ def _builders() -> list[Callable[[], EmbeddingModel]]:
     from .wavlm import WavLMModel
     from .whisper import WhisperModel
 
-    builders: list[Callable[[], EmbeddingModel]] = [lambda: VGGishModel()]
+    builders: list[Callable[[], EmbeddingModel]] = [
+        lambda: MSCLAPModel("2023"),
+        lambda: CLAPLaionModel("audio"),
+        lambda: CLAPLaionModel("music"),
+        lambda: VGGishModel(),
+    ]
     builders += [lambda v=v: MERTModel(layer=v) for v in range(1, 13)]
     builders += [lambda: EncodecEmbModel("24k"), lambda: EncodecEmbModel("48k")]
     builders += [lambda v=v: W2V2Model("base", layer=v) for v in range(1, 13)]

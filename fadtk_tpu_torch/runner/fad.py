@@ -1,12 +1,16 @@
 """The metric engine: audio conversion cache, embedding cache I/O, statistics
-loading and plain FAD scoring.
+loading, and the three scoring modes (plain FAD, FAD-inf, per-song).
 
-API parity with the reference's ``FrechetAudioDistance`` (fadtk/fad.py:123-302)
+API parity with the reference's ``FrechetAudioDistance`` (fadtk/fad.py:123-395)
 and with ``fadtk_tpu.runner.fad``: ``load_audio``, ``cache_embedding_file``,
-``read_embedding_file``, ``load_embeddings``, ``load_stats``, ``score`` — same
-cache layout, same stats resolution order. Audio conversion is host-only:
-decode (audio/decode.py), mean downmix, the Kaiser-sinc resampler
-(dsp/resample.py), 16-bit PCM.
+``read_embedding_file``, ``load_embeddings``, ``load_stats``, ``score``,
+``score_inf``, ``score_individual`` — same cache layout, same stats resolution
+order, same CSV conventions. Audio conversion is host-only: decode
+(audio/decode.py), mean downmix, the Kaiser-sinc resampler (dsp/resample.py),
+16-bit PCM. FAD-inf subsampling takes an explicit seed (the reference's
+np.random.choice at fadtk/fad.py:333 is unseeded); with ``device_scoring``
+the FAD-inf sweep and per-song scoring run on the device
+(metric/device_scoring.py).
 """
 
 from __future__ import annotations
@@ -14,12 +18,12 @@ from __future__ import annotations
 import os
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 
-from ..metric.frechet import frechet_distance
-from ..metric.stats import calculate_embd_statistics_online
+from ..metric.frechet import FrechetBaseline, frechet_distance
+from ..metric.stats import calc_embd_statistics, calculate_embd_statistics_online
 from ..models.base import EmbeddingModel
 from ..utils import (
     PathLike,
@@ -38,6 +42,15 @@ def atomic_save_npy(path: Path, array: np.ndarray) -> None:
     tmp = path.with_suffix(f".{os.getpid()}.tmp.npy")
     np.save(tmp, array)
     os.replace(tmp, path)
+
+
+class FADInfResults(NamedTuple):
+    """Parity: reference fadtk/fad.py:35-39."""
+
+    score: float
+    slope: float
+    r2: float
+    points: list[tuple[int, float]]
 
 
 def _shipped_stats_dirs() -> list[Path]:
@@ -74,10 +87,20 @@ class FrechetAudioDistance:
         audio_load_worker: int = 8,
         load_model: bool = True,
         frechet_method: str = "eigh",
+        device_scoring: bool = False,
+        scoring_mesh=None,
     ):
+        """``device_scoring=True`` runs the FAD-inf sweep and per-song scoring
+        on the device (float32; ~1e-3 relative to the host float64 parity
+        path, metric/device_scoring.py). ``scoring_mesh``: an optional
+        ``parallel.mesh.Mesh`` for those loops, whose dp ranks split the
+        FAD-inf frame matrix and the per-song batches (per-song scores equal
+        a single device's; the sweep is statistically equivalent)."""
         self.ml = ml
         self.audio_load_worker = audio_load_worker
         self.frechet_method = frechet_method
+        self.device_scoring = device_scoring
+        self.scoring_mesh = scoring_mesh
         if load_model:
             self.ml.ensure_loaded()
 
@@ -230,3 +253,133 @@ class FrechetAudioDistance:
         return frechet_distance(
             mu_bg, cov_bg, mu_ev, cov_ev, method=self.frechet_method, device=self.ml.device
         )
+
+    def score_inf(
+        self,
+        baseline: PathLike,
+        eval_files: list[Path],
+        steps: int = 25,
+        min_n: int = 500,
+        seed: int = 0,
+    ) -> FADInfResults:
+        """Bias-corrected FAD-inf extrapolation (parity: fadtk/fad.py:304-351;
+        same ns grid, same with-replacement subsampling, same 1/n linear fit,
+        seeded: ``np.random.RandomState(seed)``, as the JAX package draws)."""
+        log.info(f"Calculating FAD-inf for {self.ml.name}...")
+        mu_base, cov_base = self.load_stats(baseline)
+
+        if all(f.suffix == ".npy" for f in eval_files):
+            embeds = np.concatenate([np.load(f) for f in eval_files], axis=0)
+        else:
+            embeds = self._load_embeddings(list(eval_files), concat=True)
+
+        if self.device_scoring:
+            from ..metric.device_scoring import fad_inf_device
+
+            return FADInfResults(*fad_inf_device(
+                mu_base, cov_base, embeds, steps=steps, min_n=min_n, seed=seed,
+                mesh=self.scoring_mesh))
+
+        max_n = len(embeds)
+        ns = [int(n) for n in np.linspace(min_n, max_n, steps)]
+        rng = np.random.RandomState(seed)
+        # Factor sqrtm(C_base) once across the whole sweep (eigh path).
+        baseline_factor = (
+            FrechetBaseline(mu_base, cov_base) if self.frechet_method == "eigh" else None
+        )
+
+        results: list[tuple[int, float]] = []
+        for n in ns:
+            indices = rng.choice(embeds.shape[0], size=n, replace=True)
+            mu_ev, cov_ev = calc_embd_statistics(embeds[indices])
+            if baseline_factor is not None:
+                fad = baseline_factor.distance(mu_ev, cov_ev)
+            else:
+                fad = frechet_distance(mu_base, cov_base, mu_ev, cov_ev,
+                                       method=self.frechet_method, device=self.ml.device)
+            results.append((n, fad))
+
+        ys = np.array([r[1] for r in results])
+        xs = 1.0 / np.array(ns)
+        slope, intercept = np.polyfit(xs, ys, 1)
+        r2 = 1 - np.sum((ys - (slope * xs + intercept)) ** 2) / np.sum((ys - np.mean(ys)) ** 2)
+        return FADInfResults(score=float(intercept), slope=float(slope), r2=float(r2),
+                             points=results)
+
+    def score_individual(self, baseline: PathLike, eval_dir: PathLike,
+                         csv_name: PathLike) -> Path:
+        """Per-song FAD scores written to a CSV sorted by |score| ascending.
+
+        Parity: reference fadtk/fad.py:353-395 — default path
+        data/fad-individual/{model}/{csv} for a str name, skip-if-exists,
+        per-file errors dropped, comma fields sanitized to '_'. With
+        ``device_scoring`` the songs stream through one ``PerSongScorer`` in
+        windows of 256 files; under a dp mesh every rank scores and rank 0
+        writes the CSV.
+        """
+        csv = Path(csv_name)
+        if isinstance(csv_name, str):
+            csv = Path("data") / "fad-individual" / self.ml.cache_name / csv_name
+        if csv.exists():
+            log.info(f"CSV file {csv} already exists, exiting...")
+            return csv
+
+        mu, cov = self.load_stats(baseline)
+        files = dataset_files(eval_dir)
+        if self.device_scoring:
+            pairs = self._score_individual_device(mu, cov, files)
+        else:
+            pairs = self._score_individual_host(mu, cov, files)
+
+        pairs.sort(key=lambda x: abs(x[1]))
+        if self.scoring_mesh is None or self.scoring_mesh.rank == 0:
+            csv.parent.mkdir(parents=True, exist_ok=True)
+            csv.write_text("\n".join(
+                ",".join(str(x).replace(",", "_") for x in row) for row in pairs))
+        return csv
+
+    def _score_individual_device(self, mu, cov, files: list[Path]) -> list[tuple[Path, float]]:
+        """Stream file windows through a factored-once baseline: host memory
+        stays bounded by the window, not the dataset."""
+        from ..metric.device_scoring import PerSongScorer
+
+        scorer = PerSongScorer(mu, cov, mesh=self.scoring_mesh)
+        window = 256
+        pairs: list[tuple[Path, float]] = []
+        for start in range(0, len(files), window):
+            embeds, kept = [], []
+            for f in files[start : start + window]:
+                try:
+                    e = self.read_embedding_file(f)
+                    if e.shape[0] < 2:
+                        raise ValueError(f"{e.shape[0]} embedding frames; FAD needs 2")
+                    embeds.append(e)
+                    kept.append(f)
+                except Exception as e:
+                    log.error(f"per-song FAD failed for {f}: {e}")
+            if embeds:
+                pairs.extend(zip(kept, scorer.score_batch(embeds)))
+        return pairs
+
+    def _score_individual_host(self, mu, cov, files: list[Path]) -> list[tuple[Path, float]]:
+        baseline_factor = FrechetBaseline(mu, cov) if self.frechet_method == "eigh" else None
+
+        def _find_z_helper(f: Path):
+            try:
+                embd = self.read_embedding_file(f)
+                mu_ev, cov_ev = calc_embd_statistics(embd)
+                if baseline_factor is not None:
+                    return baseline_factor.distance(mu_ev, cov_ev)
+                return frechet_distance(mu, cov, mu_ev, cov_ev, method=self.frechet_method,
+                                        device=self.ml.device)
+            except Exception as e:
+                import traceback
+
+                traceback.print_exc()
+                log.error(f"An error occurred calculating individual FAD using model "
+                          f"{self.ml.name} on file {f}: {e}")
+                return None
+
+        with ThreadPoolExecutor(max_workers=self.audio_load_worker) as ex:
+            scores = list(ex.map(_find_z_helper, files))
+        return [(f, s) for f, s in zip(files, scores) if s is not None]

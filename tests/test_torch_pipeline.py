@@ -119,6 +119,7 @@ def test_port_cli_on_cpu(scored, monkeypatch):
 def test_port_cli_rejects_unported_flags(monkeypatch, tmp_path):
     from fadtk_tpu_torch.cli.main import main
 
-    monkeypatch.setattr(sys, "argv", ["fadtk", "w2v2-base", str(tmp_path), str(tmp_path), "--inf"])
-    with pytest.raises(SystemExit, match="--inf is not ported"):
+    monkeypatch.setattr(sys, "argv", ["fadtk", "w2v2-base", str(tmp_path), str(tmp_path),
+                                      "--multihost"])
+    with pytest.raises(SystemExit, match="--multihost is not ported"):
         main()
