@@ -79,18 +79,21 @@ Phases:
    (HTSAT-base, the widest published CLAP tower), clap-laion-audio and
    clap-2023; then a batch-32 forward of each (frontend included) in f32
    and bf16, with the device time by kernel, the idle share and K3's share;
+   cdpam-acoustic and cdpam-content (16 convs, 512-d heads) f32 on the card
+   against f32 on the CPU on one 5.3 s clip at 22.05 kHz (a ragged last
+   chunk), then a batch of 128 chunks of 1 s in f32 and bf16 with the device
+   time by kernel;
 8. the main paths through the CLI (``fadtk_tpu_torch.cli.main.main``) on two
    generated datasets of 16 WAV clips each (full 10 s and ragged 2-9 s clips,
    some at 44.1 kHz so the host resampler runs): w2v2-base and
    wavlm-base-plus in f32 and ``--bf16``, MERT-v1-95M ``--bf16`` (resampled to
    24 kHz), encodec-emb in f32 and ``--bf16`` with the knob on,
-   encodec-emb-48k ``--bf16``, dac-44kHz ``--bf16``, whisper-base in f32 and
-   ``--bf16``, vggish ``--bf16``, clap-laion-music in f32 and ``--bf16`` and
-   clap-2023 ``--bf16``. Every kernel launch count is set to 0
-   just before each run and read just after it: K1/K1b must launch 12 times
-   per speech device batch, K4 (f32) or K4b (its bf16 tensor-core form) 4
-   times per encodec-emb forward, K3 once per
-   whisper or CLAP forward, and no kernel elsewhere;
+   encodec-emb-48k, dac-44kHz, whisper-base, vggish, clap-laion-music,
+   clap-2023 and cdpam-acoustic in f32 and ``--bf16``. Every kernel launch
+   count is set to 0 just before each run and read just after it: K1/K1b
+   must launch 12 times per speech device batch, K4 (f32) or K4b (its bf16
+   tensor-core form) 4 times per encodec-emb forward, K3 once per whisper or
+   CLAP forward, and no kernel elsewhere;
 9. the device pipeline through the CLI (``--device-pipeline``: no embedding
    caches, statistics on the card) on the same two datasets: w2v2-base and
    wavlm-base-plus in f32 and ``--bf16``, and w2v2-base f32 with ``--batch 4``
@@ -101,7 +104,15 @@ Phases:
    ``stats/<model>/`` and the score the cached path's, in f32 and bf16
    (``PIPE_TOL``); for w2v2-base f32 the gap is split into its sources
    (``scripts/torch_pipeline_gap_probe.py``); the pipeline's audio-s/s is
-   printed beside the cached path's embed-stage rate;
+   printed beside the cached path's embed-stage rate. Then every other
+   family through the chunked and whole-clip pipelines (``parallel/dp.py``):
+   vggish, whisper-base (f32 and ``--bf16``), clap-laion-music, clap-2023,
+   dac-44kHz, encodec-emb-48k (segments and exact-length tails), encodec-emb
+   with the knob on (whole clips; f32 and ``--bf16``) and cdpam-acoustic,
+   held to the same checks (the score against the FAD of the cached frames'
+   float64 statistics, see ``pipeline_run``), K3 once per whisper or CLAP
+   forward and K4 / K4b 4 times per encodec-emb forward, as predicted from
+   the clip lengths (``pipeline_forwards``);
 10. the scoring modes through the CLI on w2v2-base's f32 cache from phase 8:
    ``--inf``, ``--indiv``, ``--inf --device-scoring`` and ``--indiv
    --device-scoring`` (no kernel may launch). Every device per-song score
@@ -113,8 +124,18 @@ Phases:
    matrix of 100 000 x 768, the device sweep twice (its points must be
    equal), and per-song host against device on 1 000 songs of 500 frames x
    768, through ``score_inf`` / ``score_individual``,
-   timed beside the card's name and power limit;
-11. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+   timed beside the card's name and power limit; before the timings, the
+   other module entry points: ``python -m fadtk_tpu_torch.test`` (the
+   golden-score harness) on w2v2-base with a golden CSV made from this run's
+   own scores, which must exit 0, and 2 once perturbed;
+   ``python -m fadtk_tpu_torch.embeds`` over the 12 MERT-v1-95M variants on
+   a fresh copy of the eval clips, one backbone forward per file, the
+   default layer's caches against a per-variant run's;
+   ``python -m fadtk_tpu_torch.package`` for w2v2-base and cdpam-acoustic,
+   whose ``.npz`` must hold the stats caches;
+11. one JSON line of kernel results (K3's and K4's launches also by path:
+   the cached CLI runs and the non-speech ``--device-pipeline`` runs), then
+   ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -952,7 +973,7 @@ def path_shape(model, lengths: list[int]) -> tuple[list[int], int]:
     encodec-emb's groups of one exact length (64 to a forward, 320-sample
     hop), encodec-emb-48k's full 1 s segments (150 frames each)
     and tail, dac-44kHz's 5 s windows at 50 % overlap (430 frames each, 8 to
-    a forward)."""
+    a forward), cdpam's 1 s chunks (128 to a forward)."""
     from collections import Counter
 
     from fadtk_tpu_torch.dsp.mel import vggish_num_examples
@@ -976,6 +997,9 @@ def path_shape(model, lengths: list[int]) -> tuple[list[int], int]:
     if model.name == "dac-44kHz":
         windows = [2 * max(1, -(-n // 220500)) - 1 for n in lengths]
         return [w * 430 for w in windows], -(-sum(windows) // model.WINDOW_BATCH)
+    if model.name.startswith("cdpam-"):
+        chunks = [-(-n // model.sr) for n in lengths]
+        return chunks, -(-sum(chunks) // model.CHUNK_BATCH)
     bucket = 10 * model.sr
     buckets = Counter(next_multiple(max(n, 1), bucket) for n in lengths).values()
     return ([model.cfg.num_output_frames(n) for n in lengths],
@@ -1098,11 +1122,14 @@ def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
             ("wavlm-base-plus", False, None, None), ("wavlm-base-plus", True, None, ("K1b", 12)),
             ("MERT-v1-95M", True, None, ("K1", 12)),
             ("encodec-emb", False, fused, ("K4", 4)), ("encodec-emb", True, fused, ("K4b", 4)),
-            ("encodec-emb-48k", True, None, None), ("dac-44kHz", True, None, None),
+            ("encodec-emb-48k", False, None, None), ("encodec-emb-48k", True, None, None),
+            ("dac-44kHz", False, None, None), ("dac-44kHz", True, None, None),
             ("whisper-base", False, None, ("K3", 1)), ("whisper-base", True, None, ("K3", 1)),
-            ("vggish", True, None, None),
+            ("vggish", False, None, None), ("vggish", True, None, None),
             ("clap-laion-music", False, None, ("K3", 1)),
-            ("clap-laion-music", True, None, ("K3", 1)), ("clap-2023", True, None, ("K3", 1))]
+            ("clap-laion-music", True, None, ("K3", 1)), ("clap-2023", False, None, ("K3", 1)),
+            ("clap-2023", True, None, ("K3", 1)),
+            ("cdpam-acoustic", False, None, None), ("cdpam-acoustic", True, None, None)]
     totals = dict.fromkeys((*KERNEL_KEYS, "K3 whisper", "K3 clap-laion", "K3 clap-2023"), 0)
     cached = {}
     for model_name, bf16, env, kernel in runs:
@@ -1123,12 +1150,40 @@ def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
     return totals, cached, seconds
 
 
+def exact_cached_score(work: Path, key: str) -> tuple[float, float]:
+    """FAD between the two datasets from float64 statistics of all their
+    cached float16 frames, without the float16 per-file means the cached
+    path takes (as the reference does, ``np.mean`` of a float16 ``.npy``),
+    and the sum of its terms before they cancel, tr C1 + tr C2 + |mu1 - mu2|²
+    (the scale that float32 statistics' rounding moves the FAD by)."""
+    import numpy as np
+
+    from fadtk_tpu_torch.metric.frechet import frechet_distance
+
+    stats = []
+    for ds in ("baseline", "eval"):
+        x = np.concatenate([np.load(f) for f in sorted((work / ds / "embeddings" / key)
+                                                       .glob("*.npy"))]).astype(np.float64)
+        stats += [x.mean(axis=0), np.cov(x, rowvar=False)]
+    mu1, cov1, mu2, cov2 = stats
+    scale = np.trace(cov1) + np.trace(cov2) + float(np.sum((mu1 - mu2) ** 2))
+    return frechet_distance(*stats), float(scale)
+
+
 def pipeline_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: bool,
-                 cached: dict, env: dict | None = None, argv: tuple = ()) -> dict:
+                 cached: dict, env: dict | None = None, argv: tuple = (),
+                 f16_means: bool = False) -> dict:
     """One ``--device-pipeline`` CLI run over the two datasets, after the
     cached runs of ``cli_runs``. Checks the CSV row, that no embedding .npy
-    was written, the frame count of each dataset against the clips, and in
-    f32 the statistics and score against the cached path's. Returns the
+    was written, the frame count of each dataset against the clips, and the
+    statistics and score against the cached path's. With ``f16_means``
+    (the non-speech families, whose FADs on these datasets are small beside
+    the frames' scale), the score is held to the FAD of the cached frames'
+    float64 statistics (``exact_cached_score``) within the tolerance times
+    the sum of the FAD's terms before they cancel (float32 statistics are
+    exact to a fraction of that sum, not of a small FAD), and to the cached
+    path's score within that plus the cached score's own offset from the
+    float64 one (the cached path's float16 per-file means). Returns the
     launch counts (set to 0 just before the run, read just after it), the
     device batches and checkpoint saves, and the pipeline's rate."""
     import numpy as np
@@ -1209,9 +1264,22 @@ def pipeline_run(torch, kernels, work: Path, seconds: float, model_name: str, bf
         if not (d_mu <= lim["mu"] and d_cov <= lim["cov"]):
             raise AssertionError(f"[pipeline {key}] {ds}: stats differ from the cached path")
     rel = abs(score - cached[key]["score"]) / abs(cached[key]["score"])
+    limit = lim["score"]
+    if f16_means:
+        exact, terms = exact_cached_score(work, key)
+        gap = abs(score - exact)
+        offset = abs(cached[key]["score"] - exact)
+        print(f"[pipeline {key}] score {score} vs the FAD of the cached frames' float64 "
+              f"statistics {exact}: {gap:.3e} = {gap / terms:.3e} of its terms' sum {terms:.4g} "
+              f"({limit:g}; {gap / abs(exact):.3e} of the FAD); the cached path's float16-mean "
+              f"offset from it {offset:.3e}", flush=True)
+        if not gap <= limit * terms:
+            raise AssertionError(f"[pipeline {key}] score differs from the float64 statistics' "
+                                 f"by {gap}")
+        limit = (limit * terms + offset) / abs(cached[key]["score"])
     print(f"[pipeline {key}] score {score} vs cached {cached[key]['score']}: relative "
-          f"{rel:.3e} ({lim['score']:g})", flush=True)
-    if not rel <= lim["score"]:
+          f"{rel:.3e} ({limit:g})", flush=True)
+    if not rel <= limit:
         raise AssertionError(f"[pipeline {key}] score differs from the cached path by {rel}")
     return {**launches, **counts, "rate": seconds / pipe_s}
 
@@ -1238,6 +1306,90 @@ def pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -> d
             raise AssertionError(f"[pipeline {model_name} {argv}]: {got['saves']} checkpoint saves")
         for k in totals:
             totals[k] += got[k]
+    return totals
+
+
+def pipeline_forwards(model, lengths: list[int]) -> int:
+    """Device forwards of one ``--device-pipeline`` pass (dp = 1) over a
+    dataset's clips (converted lengths in samples), by family: the chunked
+    path packs every clip's windows into batches of the family's preferred
+    size (whisper one 30 s window a clip, 16 a batch; CLAP a chunk per 1 s
+    hop start, 32; vggish's examples, 256; dac-44kHz's windows, 8;
+    encodec-emb-48k's full 1 s segments, 64, its tails outside the batches;
+    cdpam's 1 s chunks, 256); encodec-emb's whole-clip path dispatches each
+    group of one length 8 clips at a time (16 clips never reach its
+    early-flush cap of 32)."""
+    from collections import Counter
+
+    from fadtk_tpu_torch.dsp.mel import vggish_num_examples
+
+    if model.name == "encodec-emb":
+        return sum(-(-c // 8) for c in Counter(lengths).values())
+    if model.name.startswith("whisper-"):
+        rows, batch = len(lengths), 16
+    elif model.name.startswith("clap-"):
+        rows, batch = sum(-(-n // model.sr) for n in lengths), 32
+    elif model.name == "vggish":
+        rows, batch = sum(vggish_num_examples(n) for n in lengths), 256
+    elif model.name == "dac-44kHz":
+        rows, batch = sum(2 * max(1, -(-n // 220500)) - 1 for n in lengths), 8
+    elif model.name == "encodec-emb-48k":
+        rows, batch = sum(n // 48000 for n in lengths), 64
+    elif model.name.startswith("cdpam-"):
+        rows, batch = sum(-(-n // model.sr) for n in lengths), 256
+    else:
+        raise ValueError(model.name)
+    return -(-rows // batch)
+
+
+# The non-speech --device-pipeline runs: (model, bf16, env for the run, kernel
+# that must launch and how often per device forward, or None).
+DP_PIPELINE_RUNS = [
+    ("vggish", False, None, None), ("whisper-base", False, None, ("K3", 1)),
+    ("whisper-base", True, None, ("K3", 1)), ("clap-laion-music", False, None, ("K3", 1)),
+    ("clap-2023", False, None, ("K3", 1)), ("dac-44kHz", False, None, None),
+    ("encodec-emb-48k", False, None, None),
+    ("encodec-emb", False, {"FADTK_TPU_FUSED_RESNET": "1"}, ("K4", 4)),
+    ("encodec-emb", True, {"FADTK_TPU_FUSED_RESNET": "1"}, ("K4b", 4)),
+    ("cdpam-acoustic", False, None, None),
+]
+
+
+def dp_pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -> dict:
+    """``--device-pipeline`` for every non-speech family, through the chunked
+    and whole-clip paths of ``parallel/dp.py``, against the cached runs of
+    ``cli_runs`` (``pipeline_run``'s checks). K3 must launch once per device
+    forward of whisper and CLAP, K4 (f32) or K4b (bf16) four times per
+    forward of encodec-emb with the knob on, as predicted from the clip
+    lengths (``pipeline_forwards``), and nothing else. Returns the launches
+    summed over the runs (K3 also by family)."""
+    from fadtk_tpu_torch.audio.wavio import read_wav_int16
+    from fadtk_tpu_torch.models.registry import get_model
+
+    totals = dict.fromkeys((*KERNEL_KEYS, "K3 whisper", "K3 clap-laion", "K3 clap-2023"), 0)
+    for model_name, bf16, env, kernel in DP_PIPELINE_RUNS:
+        got = pipeline_run(torch, kernels, work, seconds, model_name, bf16, cached, env,
+                           f16_means=True)
+        model = get_model(model_name)
+        forwards = 0
+        for ds in ("baseline", "eval"):
+            lengths = [read_wav_int16(f)[0].shape[0]
+                       for f in sorted((work / ds / "convert" / str(model.sr)).glob("*.wav"))]
+            forwards += pipeline_forwards(model, lengths)
+        want = dict.fromkeys(KERNEL_KEYS, 0)
+        if kernel:
+            want[kernel[0]] = kernel[1] * forwards
+        print(f"[pipeline {model_name} bf16={bf16}] {forwards} device forwards predicted; "
+              f"launches {want} predicted", flush=True)
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"[pipeline {model_name} bf16={bf16}]: launches {got}, "
+                                 f"expected {want} ({forwards} device forwards)")
+        for k in KERNEL_KEYS:
+            totals[k] += got[k]
+        family = next((f for f in ("whisper", "clap-laion", "clap-2023")
+                       if model_name.startswith(f)), None)
+        if family:
+            totals[f"K3 {family}"] += got["K3"]
     return totals
 
 
@@ -1361,6 +1513,146 @@ def scoring_checks(torch, kernels, work: Path) -> None:
             raise AssertionError(f"trace step ({branch}) {dev} vs host {host}")
     if len(checked) != 3:
         raise AssertionError(f"the sweep over {max_n} frames covers {checked} only")
+
+
+def run_module(name: str, *argv) -> None:
+    """``python -m <name> argv...`` in this process (so launch counts and
+    patches reach it); a ``SystemExit`` with code 0 or None is success."""
+    import runpy
+
+    sys.argv = [name, *map(str, argv)]
+    try:
+        runpy.run_module(name, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise
+
+
+def embeds_check(torch, work: Path) -> None:
+    """``python -m fadtk_tpu_torch.embeds`` over the 12 MERT-v1-95M variants
+    on a fresh copy of the eval dataset's 16 clips: one backbone forward per
+    file, every variant's caches written, and the default layer's ``.npy``
+    against a per-variant ``cache_embedding_files`` run of MERT-v1-95M on
+    another fresh copy (f32 both; the one-clip forward against the batched
+    one sums in another order, so a float16 value may land one ulp away, at
+    most 2^-10 of the file's largest value: the limit). Both wall times,
+    convert included."""
+    import shutil
+
+    import numpy as np
+
+    from fadtk_tpu_torch.models.registry import get_model
+    from fadtk_tpu_torch.models.speech.family import SpeechEmbeddingModel
+    from fadtk_tpu_torch.runner.batch import cache_embedding_files
+
+    names = [f"MERT-v1-95M-{i}" for i in range(1, 12)] + ["MERT-v1-95M"]
+    dirs = {label: work / f"embeds-{label}" for label in ("multi", "single")}
+    for d in dirs.values():
+        d.mkdir()
+        for f in sorted((work / "eval").glob("*.wav")):
+            shutil.copy(f, d / f.name)
+    calls = []
+    real = SpeechEmbeddingModel._forward
+
+    def counted(self, audio, num_valid, taps):
+        calls.append((audio.shape, taps))
+        return real(self, audio, num_valid, taps)
+
+    SpeechEmbeddingModel._forward = counted
+    try:
+        t0 = time.perf_counter()
+        run_module("fadtk_tpu_torch.embeds", "-m", *names, "-d", dirs["multi"])
+        torch.cuda.synchronize()
+        multi_s = time.perf_counter() - t0
+    finally:
+        SpeechEmbeddingModel._forward = real
+    n_files = len(list(dirs["multi"].glob("*.wav")))
+    if len(calls) != n_files or any(taps is not None for _, taps in calls):
+        raise AssertionError(f"embeds: {len(calls)} backbone forwards for {n_files} files: "
+                             f"{calls}")
+    for name in names:
+        got = len(list((dirs["multi"] / "embeddings" / name).glob("*.npy")))
+        if got != n_files:
+            raise AssertionError(f"embeds: {got} {name} caches for {n_files} files")
+    t0 = time.perf_counter()
+    cache_embedding_files(dirs["single"], get_model("MERT-v1-95M"))
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    worst, flips, values = 0.0, 0, 0
+    for f in sorted((dirs["single"] / "embeddings" / "MERT-v1-95M").glob("*.npy")):
+        want = np.load(f).astype(np.float32)
+        got = np.load(dirs["multi"] / "embeddings" / "MERT-v1-95M" / f.name).astype(np.float32)
+        if got.shape != want.shape:
+            raise AssertionError(f"embeds {f.name}: {got.shape} vs {want.shape}")
+        worst = max(worst, float(np.abs(got - want).max() / np.abs(want).max()))
+        flips, values = flips + int((got != want).sum()), values + want.size
+    print(f"[embeds] 12 MERT-v1-95M variants, {n_files} files: {len(calls)} backbone forwards, "
+          f"{multi_s:.3f} s; MERT-v1-95M alone through cache_embedding_files {single_s:.3f} s; "
+          f"default layer vs the per-variant run: {flips} of {values} float16 values differ, "
+          f"the largest by {worst:.3e} of its file's largest value (limit {2.0 ** -10:.3e})",
+          flush=True)
+    if not worst <= 2.0 ** -10:
+        raise AssertionError(f"embeds: default layer differs from the per-variant run by {worst}")
+
+
+def package_check(work: Path) -> None:
+    """``python -m fadtk_tpu_torch.package`` on the eval dataset with
+    ``--models w2v2-base cdpam-acoustic`` (their f32 caches exist): the
+    ``.npz`` holds exactly the two stats caches."""
+    import numpy as np
+
+    out = work / "package" / "eval.npz"
+    names = ("w2v2-base", "cdpam-acoustic")
+    t0 = time.perf_counter()
+    run_module("fadtk_tpu_torch.package", work / "eval", out, "--models", *names)
+    with np.load(out) as z:
+        want = sorted(f"{m}.{k}" for m in names for k in ("mu", "cov"))
+        if sorted(z.files) != want:
+            raise AssertionError(f"package: keys {sorted(z.files)}, expected {want}")
+        for m in names:
+            for k in ("mu", "cov"):
+                if not np.array_equal(z[f"{m}.{k}"], np.load(work / "eval" / "stats" / m /
+                                                             f"{k}.npy")):
+                    raise AssertionError(f"package: {m}.{k} differs from the stats cache")
+    print(f"[package] {out.name}: {want} equal to the stats caches, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def harness_check(work: Path, cached: dict) -> None:
+    """``python -m fadtk_tpu_torch.test`` on w2v2-base with a golden CSV made
+    from this run's own scores (the host ``--indiv`` CSV of the scoring phase
+    and the CLI's whole-set score): exit 0 as made, 2 once perturbed."""
+    indiv = work / "scoring--indiv.csv"
+    rows = ["song_id,dataset,FAD_w2v2_base_fma_pop"]
+    for line in indiv.read_text().strip().split("\n"):
+        path, score = line.split(",")
+        rows.append(f"{'/'.join(path.split('/')[-2:]).split('.')[0]},eval,{score}")
+    rows.append(f"samples/all,eval,{cached['w2v2-base']['score']}")
+    golden = work / "golden.csv"
+    perturbed = work / "golden-perturbed.csv"
+    golden.write_text("\n".join(rows) + "\n")
+    perturbed.write_text("\n".join(
+        [rows[0]] + [f"{r.rsplit(',', 1)[0]},{float(r.rsplit(',', 1)[1]) * 2 + 10}"
+                     for r in rows[1:]]) + "\n")
+    cwd = os.getcwd()
+    os.chdir(work)  # comparison.csv lands in the working directory
+    try:
+        codes = {}
+        for label, g in (("as made", golden), ("perturbed", perturbed)):
+            try:
+                run_module("fadtk_tpu_torch.test", "--samples", work / "eval", "--golden", g,
+                           "--baseline", work / "baseline", "--out-dir",
+                           work / f"harness-{label.replace(' ', '-')}", "--models", "w2v2-base")
+                codes[label] = 0
+            except SystemExit as e:
+                codes[label] = e.code
+            comparison = (work / "comparison.csv").read_text().strip()
+            print(f"[harness] golden {label}: exit {codes[label]}; comparison.csv "
+                  f"{comparison.splitlines()[-1]}", flush=True)
+    finally:
+        os.chdir(cwd)
+    if codes != {"as made": 0, "perturbed": 2}:
+        raise AssertionError(f"harness exit codes {codes}, expected 0 as made and 2 perturbed")
 
 
 def scoring_timings(torch, work: Path, smi: str) -> None:
@@ -1540,14 +1832,33 @@ def main() -> int:
             del clap
             torch.cuda.empty_cache()
 
-        phase("main paths: CLI w2v2-base, wavlm-base-plus, encodec-emb, whisper-base, "
-              "clap-laion-music f32 and --bf16; MERT, encodec-emb-48k, dac-44kHz, vggish, "
-              "clap-2023 --bf16")
+        from fadtk_tpu_torch.models.cdpam_impl import cdpam_forward
+
+        phase("cdpam-acoustic and cdpam-content f32: card vs cpu, one 5.3 s clip at 22.05 kHz")
+        clip = (rng.standard_normal(int(5.3 * 22050)) * 3000).astype(np.float32)
+        for name in ("cdpam-content", "cdpam-acoustic"):
+            cdpam = model_card_vs_cpu(torch, name, clip)
+        phase("cdpam forward, batch of 128 chunks of 1 s: f32 and bf16")
+        lengths = torch.full((128,), 22050, dtype=torch.int32, device="cuda")
+        module_forward_breakdown(torch, cdpam, lambda m, x: cdpam_forward(m, x * 3e4, lengths),
+                                 (128, 22050), 128.0, "chunk-s")
+        del cdpam
+        torch.cuda.empty_cache()
+
+        phase("main paths: CLI w2v2-base, wavlm-base-plus, encodec-emb, encodec-emb-48k, "
+              "dac-44kHz, whisper-base, vggish, clap-laion-music, clap-2023, cdpam-acoustic f32 "
+              "and --bf16; MERT --bf16")
         launches, cached, seconds = cli_runs(torch, (fa, fr, k3), work)
 
         phase("device pipeline: CLI --device-pipeline w2v2-base, wavlm-base-plus f32 and --bf16, "
               "w2v2-base --batch 4 with checkpoints")
         pipeline = pipeline_runs(torch, (fa, fr, k3), work, cached, seconds)
+
+        phase("device pipeline, chunked and whole-clip: CLI --device-pipeline vggish, "
+              "whisper-base (f32 and --bf16), clap-laion-music, clap-2023, dac-44kHz, "
+              "encodec-emb-48k, encodec-emb with the fused block (f32 and --bf16), "
+              "cdpam-acoustic")
+        dp_pipeline = dp_pipeline_runs(torch, (fa, fr, k3), work, cached, seconds)
 
         phase("device pipeline: the w2v2-base f32 gap to the cached path, split by source")
         sys.path.insert(0, str(REPO / "scripts"))
@@ -1562,6 +1873,12 @@ def main() -> int:
 
         phase("scoring: CLI --inf / --indiv, host and --device-scoring, on w2v2-base's cache")
         scoring_checks(torch, (fa, fr, k3), work)
+        phase("python -m fadtk_tpu_torch.test: the golden-score harness on w2v2-base")
+        harness_check(work, cached)
+        phase("python -m fadtk_tpu_torch.embeds: 12 MERT-v1-95M variants, one forward per file")
+        embeds_check(torch, work)
+        phase("python -m fadtk_tpu_torch.package: w2v2-base and cdpam-acoustic")
+        package_check(work)
         phase("scoring: host float64 against device, FAD-inf sweep and per-song")
         scoring_timings(torch, work, smi)
 
@@ -1569,6 +1886,14 @@ def main() -> int:
             raise AssertionError("jax was imported")
         print(f"\nsmoke phases passed in {time.perf_counter() - started:.1f} s", flush=True)
         source = "fadtk_tpu_torch/csrc/flash_attention_packed.cu"
+
+        def paths(key: str) -> dict:
+            """A kernel's launches over the cached-path CLI runs and the
+            non-speech ``--device-pipeline`` runs, and their sum."""
+            return {"launches": launches[key] + dp_pipeline[key],
+                    "launches_by_path": {"cached": launches[key],
+                                         "device_pipeline": dp_pipeline[key]}}
+
         print(json.dumps({"kernels": [
             {"name": "flash_attention_packed", "route": "cuda", "source": source,
              "replaces": "fadtk_tpu/ops/flash_attention.py:703",
@@ -1580,23 +1905,23 @@ def main() -> int:
             {"name": "fused_resnet_causal (f32, one forward's four launches)", "route": "cuda",
              "source": "fadtk_tpu_torch/csrc/fused_resnet_causal.cu",
              "replaces": "fadtk_tpu/ops/fused_resnet.py:125",
-             "launches": launches["K4"], **k4["float32"]},
+             **paths("K4"), **k4["float32"]},
             {"name": "fused_resnet_causal (bf16 tensor cores, one forward's four launches)",
              "route": "cuda", "source": "fadtk_tpu_torch/csrc/fused_resnet_causal.cu",
              "replaces": "fadtk_tpu/ops/fused_resnet.py:125",
-             "launches": launches["K4b"], **k4["bfloat16"]},
+             **paths("K4b"), **k4["bfloat16"]},
             {"name": "fused_log_mel (log10_clamp, Whisper B=16)", "route": "cuda",
              "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
              "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",
-             "launches": launches["K3 whisper"], **k3_entries["whisper"]},
+             **paths("K3 whisper"), **k3_entries["whisper"]},
             {"name": "fused_log_mel (db_clamp, CLAP-LAION 48 kHz B=32, strided view)",
              "route": "cuda", "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
              "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",
-             "launches": launches["K3 clap-laion"], **k3_entries["clap-laion"]},
+             **paths("K3 clap-laion"), **k3_entries["clap-laion"]},
             {"name": "fused_log_mel (db_clamp, MS-CLAP 44.1 kHz B=32, strided view)",
              "route": "cuda", "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
              "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",
-             "launches": launches["K3 clap-2023"], **k3_entries["clap-2023"]},
+             **paths("K3 clap-2023"), **k3_entries["clap-2023"]},
             {"name": "flash_attention (head-major, factorized bias)", "route": "cuda",
              "source": source, "replaces": "fadtk_tpu/ops/flash_attention.py:490",
              "launches": pipeline["K2"], **k2},

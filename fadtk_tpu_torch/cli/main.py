@@ -11,8 +11,8 @@ Same command line, CSV format and summary line as ``fadtk_tpu.cli.main``
 ``--inf`` extrapolates FAD-inf from seeded subsamples of the eval set and
 ``--indiv`` writes per-song scores to a CSV (runner/fad.py); both read the
 embedding cache, on the host in float64 or, with ``--device-scoring``, on the
-device (metric/device_scoring.py). ``--device-pipeline`` scores the speech
-family without embedding caches (runner/device_pipeline.py). Over several GPUs
+device (metric/device_scoring.py). ``--device-pipeline`` scores any model
+without embedding caches (runner/device_pipeline.py). Over several GPUs
 ``--device-pipeline`` and ``--device-scoring`` run under ``torchrun``, one
 process per GPU (parallel/mesh.py), and rank 0 reports. ``--multihost`` is
 accepted and exits with a message: it is not ported yet.
@@ -69,11 +69,11 @@ def main() -> None:
                          "(float32); several GPUs: run under torchrun, one process "
                          "per GPU, and the frames / songs split over them")
     ap.add_argument("--device-pipeline", action="store_true",
-                    help="plain-score fast path for the speech family: embed and "
-                         "accumulate dataset Gaussians on the device without writing "
-                         "per-file embedding .npy caches; stats match the cached path "
-                         "to float32 accumulation. Several GPUs: run under torchrun, "
-                         "one process per GPU")
+                    help="plain-score fast path: embed and accumulate dataset "
+                         "Gaussians on the device without writing per-file embedding "
+                         ".npy caches; stats match the cached path to float32 "
+                         "accumulation. Several GPUs: run under torchrun, one process "
+                         "per GPU")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel degree for --device-pipeline: shard attention "
                          "heads / FFN columns over tp processes; the rest form the dp "
@@ -83,7 +83,9 @@ def main() -> None:
                          "--device-scoring (default: all of the torchrun job; 1 "
                          "without torchrun)")
     ap.add_argument("--batch", type=int, default=None,
-                    help="clips per device step for --device-pipeline (default 16 x dp)")
+                    help="rows per device step for --device-pipeline: clips for the "
+                         "speech family (default 16 x dp), chunks or clips for the others "
+                         "(default the family's preferred batch x dp)")
     not_ported = {
         "multihost": ap.add_argument("--multihost", action="store_true", help="(not ported yet)"),
     }

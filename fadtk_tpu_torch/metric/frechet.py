@@ -217,3 +217,10 @@ class FrechetBaseline:
         tr_sqrt = float(np.sum(np.sqrt(np.clip(ev, 0.0, None))))
         diff = self.mu1 - mu2
         return float(diff.dot(diff) + self.tr1 + np.trace(cov2) - 2.0 * tr_sqrt)
+
+
+def calc_frechet_distance(mu1, cov1, mu2, cov2, eps: float = 1e-6):
+    """Reference-named alias (fadtk/fad.py:51): the default 'eigh' method,
+    which agrees with the reference's value to float64 rounding for (P)SD
+    covariances."""
+    return frechet_distance(mu1, cov1, mu2, cov2, method="eigh", eps=eps)

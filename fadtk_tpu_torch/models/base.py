@@ -182,6 +182,18 @@ class EmbeddingModel(ABC):
         """Embed several clips; subclasses override with batched device code."""
         return [self.get_embedding(c) for c in clips]
 
+    def dp_spec(self):
+        """Plug into the chunked device pipeline (``parallel/dp.py``): families
+        whose inference is a fixed-window forward return a ``DpChunkSpec``.
+        Default: None."""
+        return None
+
+    def dp_whole_spec(self):
+        """Plug into the whole-clip device pipeline (``parallel/dp.py``) for
+        families with no static window that are per-clip independent at exact
+        length (encodec-emb 24k): a ``DpWholeClipSpec``. Default: None."""
+        return None
+
     @staticmethod
     def _batch_chunked(
         per_file_chunks: list[np.ndarray],

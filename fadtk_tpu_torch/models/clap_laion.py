@@ -121,3 +121,16 @@ class CLAPLaionModel(EmbeddingModel):
         per_file = [self._make_chunks(np.asarray(c)) for c in clips]
         outs = self._batch_chunked(per_file, self._forward_chunks, batch_size=self.BATCH)
         return [o.astype(np.float16) for o in outs]
+
+    def dp_spec(self):
+        """Chunked device pipeline: the cached path's 10 s chunks (made on the
+        host, a 1 s hop) are independent; K3 runs in each batch's frontend."""
+        from ..parallel.dp import DpChunkSpec
+
+        self.ensure_loaded()
+        return DpChunkSpec(
+            forward=lambda chunks: clap_laion_forward(self.module, chunks),
+            make_chunks=lambda clip: (self._make_chunks(clip),),
+            num_features=self.num_features,
+            preferred_batch=self.BATCH,
+        )

@@ -115,3 +115,16 @@ class MSCLAPModel(EmbeddingModel):
         per_file = [self._make_chunks(np.asarray(c)) for c in clips]
         outs = self._batch_chunked(per_file, self._forward_chunks, batch_size=self.BATCH)
         return [o.astype(np.float16) for o in outs]
+
+    def dp_spec(self):
+        """Chunked device pipeline: the cached path's 7 s chunks (made on the
+        host, a 1 s hop) are independent; K3 runs in each batch's frontend."""
+        from ..parallel.dp import DpChunkSpec
+
+        self.ensure_loaded()
+        return DpChunkSpec(
+            forward=lambda chunks: clap_ms_forward(self.module, self.mel, chunks),
+            make_chunks=lambda clip: (self._make_chunks(clip),),
+            num_features=self.num_features,
+            preferred_batch=self.BATCH,
+        )

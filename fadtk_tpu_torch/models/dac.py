@@ -96,3 +96,17 @@ class DACModel(EmbeddingModel):
         per_file = [self._make_windows(np.asarray(c)) for c in clips]
         outs = self._batch_chunked(per_file, self._forward, batch_size=self.WINDOW_BATCH)
         return [o.reshape(-1, self.num_features).astype(np.float16) for o in outs]
+
+    def dp_spec(self):
+        """Chunked device pipeline: the 5 s windows are independent (the
+        zero-padded last window is part of the reference semantics, so every
+        window frame counts)."""
+        from ..parallel.dp import DpChunkSpec
+
+        self.ensure_loaded()
+        return DpChunkSpec(
+            forward=lambda windows: dac_encode(self.module, windows),
+            make_chunks=lambda clip: (self._make_windows(np.asarray(clip)),),
+            num_features=self.num_features,
+            preferred_batch=self.WINDOW_BATCH,
+        )

@@ -156,3 +156,63 @@ class EncodecEmbModel(EmbeddingModel):
         if rem:
             outs.append(self._forward(audio[None, :, n_full * seg :]))
         return np.concatenate([o.reshape(-1, self.num_features) for o in outs], axis=0)
+
+    def dp_spec(self):
+        """Chunked device pipeline, 48k only: the full 1 s segments batch
+        across clips; the ragged last segment runs at its exact length
+        (zero padding would change the reflect-padded convs, reference
+        fadtk/model_loader.py:139-152) through ``tail``. The 24k model has no
+        static window (``dp_whole_spec``)."""
+        if self.segment_length is None:
+            return None
+        from ..parallel.dp import DpChunkSpec
+
+        self.ensure_loaded()
+        seg = self.segment_length
+
+        def make_chunks(clip):
+            audio = np.asarray(clip, np.float32)
+            if audio.ndim == 1:
+                audio = audio[None, :]
+            n_full = audio.shape[1] // seg
+            stacked = audio[:, : n_full * seg].reshape(audio.shape[0], n_full, seg)
+            return (np.ascontiguousarray(np.moveaxis(stacked, 1, 0)),)  # (n_full, C, seg)
+
+        def tail(clip):
+            audio = np.asarray(clip, np.float32)
+            if audio.ndim == 1:
+                audio = audio[None, :]
+            rem = audio.shape[1] % seg
+            if not rem:
+                return None
+            t = torch.from_numpy(np.ascontiguousarray(audio[None, :, -rem:])).to(self.device)
+            return encodec_encode(self.module, t).reshape(-1, self.num_features)
+
+        return DpChunkSpec(
+            forward=lambda segments: encodec_encode(self.module, segments),
+            make_chunks=make_chunks,
+            num_features=self.num_features,
+            tail=tail,
+            preferred_batch=64,  # 1 s segments (the JAX package's)
+        )
+
+    def dp_whole_spec(self):
+        """Whole-clip device pipeline, 24k only: each clip runs at its exact
+        length (reference fadtk/model_loader.py:135-137), clips of one length
+        batched together, 8 per device (the JAX package's)."""
+        if self.segment_length is not None:
+            return None
+        from ..parallel.dp import DpWholeClipSpec
+
+        self.ensure_loaded()
+
+        def prepare(clip):
+            c = np.asarray(clip, np.float32)
+            return c[None, :] if c.ndim == 1 else c
+
+        return DpWholeClipSpec(
+            forward=lambda clips: encodec_encode(self.module, clips),
+            prepare=prepare,
+            num_features=self.num_features,
+            preferred_batch=8,
+        )

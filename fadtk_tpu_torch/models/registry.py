@@ -1,16 +1,15 @@
-"""Model registry: the variants ported so far, built lazily.
+"""Model registry: every variant the reference registers
+(fadtk/model_loader.py:676-701), built lazily.
 
-``fadtk_tpu.models.registry`` registers every variant the reference does
-(fadtk/model_loader.py:676-701). The port registers the CLAP,
-speech-encoder, codec, VGGish and Whisper families (144 of the 146; CDPAM's
-two are not ported yet), in the JAX package's order:
+The 146 names of ``fadtk_tpu.models.registry``, in its order:
 
     clap-2023; clap-laion-audio, clap-laion-music; vggish;
     MERT-v1-95M[-1..11] (12 = default name); encodec-emb, encodec-emb-48k;
     w2v2-base[-1..11], w2v2-large[-1..23] (24 = default);
     hubert-base[-..], hubert-large[-..];
     wavlm-base[-..], wavlm-base-plus[-..], wavlm-large[-..];
-    whisper-{tiny,small,base,medium,large}; dac-44kHz.
+    whisper-{tiny,small,base,medium,large}; dac-44kHz;
+    cdpam-acoustic, cdpam-content.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ from .base import EmbeddingModel
 
 
 def _builders() -> list[Callable[[], EmbeddingModel]]:
+    from .cdpam import CdpamModel
     from .clap_laion import CLAPLaionModel
     from .clap_ms import MSCLAPModel
     from .dac import DACModel
@@ -51,6 +51,7 @@ def _builders() -> list[Callable[[], EmbeddingModel]]:
         lambda s=s: WhisperModel(s) for s in ("tiny", "small", "base", "medium", "large")
     ]
     builders += [lambda: DACModel()]
+    builders += [lambda: CdpamModel("acoustic"), lambda: CdpamModel("content")]
     return builders
 
 

@@ -141,3 +141,22 @@ class VGGishModel(EmbeddingModel):
                 for i in range(0, flat.shape[0], self.EXAMPLE_BATCH)]
         merged = torch.cat(outs).to(torch.float16).cpu().numpy()
         return np.split(merged, np.cumsum([e.shape[0] for e in per_file])[:-1])
+
+    def dp_spec(self):
+        """Chunked device pipeline: the 0.96 s log-mel examples (made on the
+        model's device, as for the cached path, and handed over on the host)
+        are independent batch rows."""
+        from ..parallel.dp import DpChunkSpec
+
+        self.ensure_loaded()
+
+        @torch.inference_mode()
+        def make_chunks(clip):
+            return (self._examples(clip).cpu().numpy(),)
+
+        return DpChunkSpec(
+            forward=lambda examples: vggish_forward(self.module, examples),
+            make_chunks=make_chunks,
+            num_features=self.num_features,
+            preferred_batch=self.EXAMPLE_BATCH,
+        )

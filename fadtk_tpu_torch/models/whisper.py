@@ -92,3 +92,16 @@ class WhisperModel(EmbeddingModel):
         for start in range(0, len(clips), self.BATCH):
             out.extend(self._forward_clips(windows[start : start + self.BATCH]).astype(np.float16))
         return out
+
+    def dp_spec(self):
+        """Chunked device pipeline: one 30 s window per clip; the frontend
+        (K3 on the card) runs inside the batch's forward."""
+        from ..parallel.dp import DpChunkSpec
+
+        self.ensure_loaded()
+        return DpChunkSpec(
+            forward=lambda clips: whisper_forward(self.module, whisper_log_mel(clips)),
+            make_chunks=lambda clip: (self._make_chunk(np.asarray(clip))[None],),
+            num_features=self.num_features,
+            preferred_batch=self.BATCH,
+        )

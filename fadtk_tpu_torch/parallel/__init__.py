@@ -1,4 +1,5 @@
-"""Multi-device evaluation: the (dp, tp) process mesh (``mesh``) and the
-tensor-parallel speech step with its sharded statistics (``tp``), ported from
-``fadtk_tpu.parallel``. The generic chunked / whole-clip data-parallel
-pipeline (``dp``), ``whisper_tp`` and ``multihost`` are not ported yet."""
+"""Multi-device evaluation, ported from ``fadtk_tpu.parallel``: the (dp, tp)
+process mesh (``mesh``), the tensor-parallel speech step with its sharded
+statistics (``tp``) and the chunked / whole-clip data-parallel pipeline of
+the other families (``dp``). ``whisper_tp`` and ``multihost`` are not ported
+yet."""

@@ -17,9 +17,62 @@ from typing import Sequence, Union
 import numpy as np
 
 from ..models.base import EmbeddingModel
-from ..utils import dataset_files, get_cache_embedding_path, log
+from ..utils import PathLike, dataset_files, get_cache_embedding_path, log
 from . import profiling
 from .fad import FrechetAudioDistance, atomic_save_npy
+
+
+def cache_embedding_files_multi(
+    models: Sequence[EmbeddingModel],
+    directory: PathLike,
+    workers: int = 8,
+) -> None:
+    """Cache embeddings for many models over one directory; the per-layer
+    variants of one speech backbone (same ``weights_name``) share a single
+    forward per file (``embed_all_layers``), the other models go through
+    ``cache_embedding_files``.
+
+    The reference re-runs the whole model for every layer variant
+    (fadtk/package.py:30-31 iterates ~120 of them). A file whose caches all
+    exist is skipped.
+    """
+    from collections import defaultdict
+
+    from ..models.speech.family import SpeechEmbeddingModel
+
+    groups: dict[str, list[SpeechEmbeddingModel]] = defaultdict(list)
+    singles: list[EmbeddingModel] = []
+    for m in models:
+        if isinstance(m, SpeechEmbeddingModel):
+            groups[m.weights_name()].append(m)
+        else:
+            singles.append(m)
+
+    files = dataset_files(directory)
+    for group in groups.values():
+        todo = [f for f in files
+                if any(not get_cache_embedding_path(m.cache_name, f).exists() for m in group)]
+        if not todo:
+            continue
+        log.info(f"Caching embeddings for {directory} using "
+                 f"{', '.join(m.name for m in group)} (shared backbone)")
+        primary = group[0]
+        primary.ensure_loaded()
+        fad = FrechetAudioDistance(primary, audio_load_worker=workers, load_model=False)
+        for f in todo:
+            with profiling.stage("load_audio"):
+                wav = fad.load_audio(f)
+            with profiling.stage("embed"):
+                all_layers = primary.embed_all_layers(np.asarray(wav))
+            for m in group:
+                cache = get_cache_embedding_path(m.cache_name, f)
+                if not cache.exists():
+                    atomic_save_npy(cache, all_layers[m.layer].astype(np.float16))
+    profiling.report()
+
+    for m in singles:
+        log.info(f"Caching embeddings for {directory} using {m.name}")
+        cache_embedding_files(directory, m, workers=workers)
 
 
 def cache_embedding_files(

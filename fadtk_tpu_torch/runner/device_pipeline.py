@@ -1,21 +1,25 @@
 """Device-resident dataset scoring: audio -> embedding -> streaming covariance,
 without writing per-file embedding .npy files.
 
-The port of ``fadtk_tpu/runner/device_pipeline.py`` for the speech family
-(w2v2, HuBERT, WavLM, MERT): the fast path for "score two directories" (the
-reference always round-trips embeddings through the filesystem,
-fadtk/fad.py:188-209). Clips are decoded and converted on host threads
-(runner/convert.py), batched into one padding bucket per batch, embedded by
-the (dp, tp) step of parallel/tp.py and folded into a Welford state that
-stays on the device; the host fetches (mu, M2, n) once at the end and at
-checkpoints (runner/resume.py), and finishes ``s / (n - 1)`` in float64.
+The port of ``fadtk_tpu/runner/device_pipeline.py``: the fast path for
+"score two directories" (the reference always round-trips embeddings through
+the filesystem, fadtk/fad.py:188-209). Clips are decoded and converted on
+host threads (runner/convert.py), embedded on the device and folded into a
+Welford state that stays there; the host fetches (mu, M2, n) once at the end
+and at checkpoints (runner/resume.py), and finishes ``s / (n - 1)`` in
+float64. Two device paths cover the zoo:
+
+- the speech family (w2v2, HuBERT, WavLM, MERT): one padding bucket per
+  batch through the (dp, tp) step of parallel/tp.py;
+- every other family through the generic pipelines of parallel/dp.py, via
+  the model's ``dp_spec()`` (fixed-window chunks: VGGish, CLAP, CDPAM, DAC,
+  EnCodec-48k, Whisper) or ``dp_whole_spec()`` (whole clips at exact length,
+  grouped by length: encodec-emb 24k). Each spec's forward is the one the
+  cached path calls, so the same kernels launch (K3 in Whisper's and CLAP's
+  frontends, K4 in encodec-emb under ``FADTK_TPU_FUSED_RESNET``).
 
 Statistics equal the cached-embedding path's to float32 accumulation (this
 path applies the same float16 round-trip to the frames before accumulating).
-
-The other families' chunked / whole-clip dp pipeline (the JAX package's
-``parallel/dp.py`` with each model's ``dp_spec`` / ``dp_whole_spec``) is not
-ported yet: they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,15 +42,6 @@ from .fad import FrechetAudioDistance
 from .resume import open_checkpoint, pipeline_ckpt_path
 
 
-def _require_speech(model: EmbeddingModel) -> None:
-    if not isinstance(model, SpeechEmbeddingModel):
-        raise NotImplementedError(
-            "--device-pipeline serves the speech family (w2v2, HuBERT, WavLM, MERT) only; "
-            "the chunked / whole-clip dp pipeline the other families need is not ported to "
-            "fadtk_tpu_torch yet: score without --device-pipeline (the cached-embedding path)"
-        )
-
-
 def dataset_stats_device(
     model: EmbeddingModel,
     files: Sequence[Path] | PathLike,
@@ -66,10 +61,14 @@ def dataset_stats_device(
     + file cursor (runner/resume.py). When ``files`` is a dataset directory,
     it defaults to ``{dir}/stats/{model}/pipeline_ckpt.npz``; pass a path to
     override, or leave None (explicit file list) / set FADTK_TPU_CKPT=0 to
-    disable. A resume with the same ``batch`` is bit-identical to an
-    uninterrupted run. Under several ranks only rank 0 writes it.
+    disable. On the speech path a resume with the same ``batch`` is
+    bit-identical to an uninterrupted run; the chunked paths resume equal to
+    float32 accumulation (the batch packing differs). Under several ranks
+    only rank 0 writes it.
+
+    The speech family takes the bucketed (dp, tp) step; every other family
+    its ``dp_spec`` or ``dp_whole_spec`` (``_dataset_stats_device_chunked``).
     """
-    _require_speech(model)
     if isinstance(files, (str, Path)):
         if checkpoint is None and Path(files).is_dir():
             checkpoint = pipeline_ckpt_path(files, model)
@@ -77,6 +76,9 @@ def dataset_stats_device(
     model.ensure_loaded()
     if mesh is None:
         mesh = make_mesh()
+    if not isinstance(model, SpeechEmbeddingModel):
+        return _dataset_stats_device_chunked(model, files, mesh, batch=batch, workers=workers,
+                                             checkpoint=checkpoint)
 
     dp = mesh.dp
     if batch is None:
@@ -140,6 +142,60 @@ def dataset_stats_device(
     return mu, s / (n - 1), n
 
 
+def _model_dp_specs(model: EmbeddingModel):
+    """(dp_spec, dp_whole_spec) memoised on the model instance, as in the JAX
+    package (whose dp step executables live on the spec): one spec serves
+    every dataset pass of the model. Safe to latch: ``ensure_loaded`` is
+    idempotent and the bf16 mode is latched with the weights."""
+    cached = getattr(model, "_dp_specs_cache", None)
+    if cached is None:
+        spec = model.dp_spec()
+        whole = model.dp_whole_spec() if spec is None else None
+        cached = (spec, whole)
+        model._dp_specs_cache = cached
+    return cached
+
+
+def _dataset_stats_device_chunked(
+    model: EmbeddingModel,
+    files: Sequence[Path],
+    mesh: Mesh,
+    batch: int | None = None,
+    workers: int = 8,
+    checkpoint: PathLike | None = None,
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """The generic chunked / whole-clip pipelines (parallel/dp.py) for the
+    non-speech families."""
+    import torch.distributed as dist
+
+    from ..parallel.dp import dp_chunk_dataset_stats, dp_whole_clip_dataset_stats
+
+    spec, whole = _model_dp_specs(model)
+    if spec is None and whole is None:
+        raise NotImplementedError(
+            f"{model.name} has neither a static-window nor a whole-clip dp path; use the "
+            "cached-embedding path")
+
+    # Crash-resume: saves follow a flush of the pending chunks, so the
+    # snapshot covers files[:cursor] exactly.
+    ckpt, host_state, files_done = open_checkpoint(checkpoint, model, files)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        # Every rank flushes and merges at a checkpoint, so every rank must
+        # see it due at the same file: the cadence counts files only. And no
+        # rank starts (rank 0 may soon write) before all have read the
+        # resume point.
+        if ckpt is not None:
+            ckpt.every_seconds = float("inf")
+        dist.barrier()
+    clips = ClipLoader(model, workers=workers).iter_clips(files[files_done:])
+    run = dp_chunk_dataset_stats if spec is not None else dp_whole_clip_dataset_stats
+    out = run(spec if spec is not None else whole, clips, mesh, batch=batch,
+              ckpt=ckpt, files_done=files_done, initial_state=host_state)
+    if ckpt is not None and mesh.rank == 0:
+        ckpt.finalize()
+    return out
+
+
 def score_datasets_device(
     model: EmbeddingModel,
     baseline: PathLike,
@@ -152,7 +208,6 @@ def score_datasets_device(
     way."""
     from ..metric.frechet import frechet_distance
 
-    _require_speech(model)
     fad = FrechetAudioDistance(model, load_model=True)
     if Path(str(baseline)).is_dir():
         mu1, cov1, _ = dataset_stats_device(model, baseline, mesh=mesh, batch=batch)

@@ -145,6 +145,11 @@ class StatsCheckpoint:
                 files_done=np.int64(files_done),
             )
         os.replace(tmp, self.path)
+        self.mark(files_done)
+
+    def mark(self, files_done: int) -> None:
+        """Restart the cadence at ``files_done`` without writing: the ranks of
+        a multi-process pass that do not write keep rank 0's cadence."""
         self._last_files = files_done
         self._last_time = time.monotonic()
 

@@ -80,3 +80,27 @@ def dataset_files(path: PathLike) -> list[Path]:
 def next_multiple(x: int, m: int) -> int:
     """Smallest multiple of ``m`` that is >= ``x`` (length-bucket padding helper)."""
     return ((x + m - 1) // m) * m
+
+
+def find_sox_formats(sox_path: str = "sox") -> list[str]:
+    """Compatibility shim for the reference utility (fadtk/utils.py:49-57).
+
+    The reference probes SoX's formats for its legacy conversion path, dead
+    code behind TORCHAUDIO_RESAMPLING=True (fadtk/fad.py:24,161-184). This
+    package decodes WAV in numpy and other formats through its libav
+    decoder, never shelling out, so the probe gives the reference's own
+    failure result: an empty list.
+    """
+    return []
+
+
+def __getattr__(name: str):
+    """Reference-path parity: ``fadtk.utils`` also exports
+    ``calculate_embd_statistics_online`` (reference fadtk/utils.py:13-46),
+    which lives in metric/stats.py; that module imports this one, hence the
+    lazy PEP 562 re-export."""
+    if name == "calculate_embd_statistics_online":
+        from .metric.stats import calculate_embd_statistics_online
+
+        return calculate_embd_statistics_online
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

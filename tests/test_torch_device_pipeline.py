@@ -325,7 +325,7 @@ def test_cli_device_pipeline_writes_the_csv_row(data, tmp_path, monkeypatch):
     (("tiny-speech", "--tp", "2"), "require --device-pipeline"),
     (("tiny-speech", "--devices", "2"), "require --device-pipeline"),
     (("tiny-speech", "--device-pipeline", "--tp", "2"), "torchrun"),
-    (("vggish", "--device-pipeline"), "vggish: --device-pipeline serves the speech family"),
+    (("vggish", "--device-pipeline", "--devices", "2"), "torchrun"),
     (("tiny-speech", "--multihost"), "--multihost is not ported"),
 ])
 def test_cli_exits_with_message(data, monkeypatch, argv, message):

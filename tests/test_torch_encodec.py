@@ -284,8 +284,8 @@ def test_embed_batch_matches_single_clips(random_weights):
 
 
 def test_registry_parity_with_jax_package():
-    """The port registers the JAX registry's CLAP, speech, codec, VGGish and
-    Whisper variants, in its order: 144 of 146."""
+    """The port registers every variant of the JAX registry, in its order:
+    146 of 146."""
     from fadtk_tpu.models.registry import get_all_models as jax_models
 
     from fadtk_tpu_torch.models.registry import get_all_models
@@ -294,9 +294,9 @@ def test_registry_parity_with_jax_package():
     names = {m.name for m in got}
     want = [m for m in jax_models() if m.name in names]
     assert [m.name for m in got] == [m.name for m in want]
-    assert len(got) == 144 and len(jax_models()) == 146
+    assert len(got) == 146 and len(jax_models()) == 146
     for g, w in zip(got, want):
-        if g.name.startswith(("encodec-", "dac-")):
+        if g.name.startswith(("encodec-", "dac-", "cdpam-")):
             assert (g.name, g.sr, g.num_features, type(g).__name__) == (
                 w.name, w.sr, w.num_features, type(w).__name__)
             assert g.cfg.__dict__ == w.cfg.__dict__ and g.weights_name() == w.weights_name()
