@@ -73,7 +73,10 @@ Phases:
    examples, and batch-16 forwards (frontend included) of whisper-base and
    of whisper-large, the widest published geometry (d=1280, 32+32 layers, 20
    heads; random weights drawn on the card), each in f32 and bf16, with the
-   device time by kernel and the idle share;
+   device time by kernel and the idle share; then Whisper's
+   tensor-parallel step (``parallel/whisper_tp.py``, tp = 1) on
+   whisper-large, B = 4 windows of 30 s of features, against the plain
+   forward in f32 (1e-5 of the largest value) and bf16 (0.15), both timed;
 7. the CLAP variants through their model classes, f32 on the card against
    f32 on the CPU, same weights, one 10 s clip (ten chunks): clap-laion-music
    (HTSAT-base, the widest published CLAP tower), clap-laion-audio and
@@ -82,7 +85,13 @@ Phases:
    cdpam-acoustic and cdpam-content (16 convs, 512-d heads) f32 on the card
    against f32 on the CPU on one 5.3 s clip at 22.05 kHz (a ragged last
    chunk), then a batch of 128 chunks of 1 s in f32 and bf16 with the device
-   time by kernel;
+   time by kernel; then the port's weight converter without JAX:
+   ``convert_cli --dry-run`` on every recorded schema (dac-44kHz,
+   clap-laion-audio / -music .pt, clap-2023, cdpam, vggish), and dac-44kHz
+   and clap-laion-music converted from checkpoints of seeded values,
+   loaded by the models' ``load_model`` and run at full width on the card
+   and the CPU (f32, 1e-3 of the largest value; the CLAP forward launches
+   K3);
 8. the main paths through the CLI (``fadtk_tpu_torch.cli.main.main``) on two
    generated datasets of 16 WAV clips each (full 10 s and ragged 2-9 s clips,
    some at 44.1 kHz so the host resampler runs): w2v2-base and
@@ -112,7 +121,18 @@ Phases:
    held to the same checks (the score against the FAD of the cached frames'
    float64 statistics, see ``pipeline_run``), K3 once per whisper or CLAP
    forward and K4 / K4b 4 times per encodec-emb forward, as predicted from
-   the clip lengths (``pipeline_forwards``);
+   the clip lengths (``pipeline_forwards``); then the device convert
+   transport: the int16 clips of both datasets (copies without convert
+   caches) converted on the card against the host convert (at most 1 LSB,
+   at least 99.5% equal; before quantization within 1e-5, which a TF32
+   product would miss), the device convert of the 44.1 kHz misses timed
+   beside the host's, and ``--device-pipeline`` with
+   ``FADTK_TPU_CONVERT_TRANSPORT=device`` on w2v2-base ``--bf16`` (K1) and
+   whisper-base (K3) against the host transport on the same copies (the
+   resample must run on the card; ``PIPE_TOL``); then ``--multihost``:
+   ``python -m torch.distributed.run --nnodes 1 --nproc-per-node 1 -m
+   fadtk_tpu_torch w2v2-base ... --device-pipeline --multihost``, whose
+   score must equal the one-card run's within 1e-6 relative;
 10. the scoring modes through the CLI on w2v2-base's f32 cache from phase 8:
    ``--inf``, ``--indiv``, ``--inf --device-scoring`` and ``--indiv
    --device-scoring`` (no kernel may launch). Every device per-song score
@@ -132,9 +152,13 @@ Phases:
    a fresh copy of the eval clips, one backbone forward per file, the
    default layer's caches against a per-variant run's;
    ``python -m fadtk_tpu_torch.package`` for w2v2-base and cdpam-acoustic,
-   whose ``.npz`` must hold the stats caches;
-11. one JSON line of kernel results (K3's and K4's launches also by path:
-   the cached CLI runs and the non-speech ``--device-pipeline`` runs), then
+   whose ``.npz`` must hold the stats caches; last,
+   ``fadtk_tpu_torch.graft_entry``: ``entry()`` and
+   ``dryrun_multichip(1)``'s seven paths on the card;
+11. one JSON line of kernel results (launches also by path: K1 over the
+   cached CLI runs and the device-transport runs; K3 and K4 over the cached
+   CLI runs, the non-speech ``--device-pipeline`` runs and, for K3's
+   Whisper form, the device-transport runs), then
    ``{"ok": true, "device": ...}``.
 """
 
@@ -856,11 +880,11 @@ def module_forward_breakdown(torch, model, forward, shape: tuple, audio_s: float
     del variants
 
 
-def whisper_forward_breakdown(torch, size: str, module=None, runs: int = 10) -> None:
+def whisper_forward_breakdown(torch, size: str, module=None, runs: int = 10):
     """Batch-16 forwards of 30 s windows, frontend (K3) included: median
     CUDA-event time in f32 and bf16, then one profiled forward each. Without
     ``module``, random weights drawn on the card from the seed (whisper-large
-    has 1.55 B parameters)."""
+    has 1.55 B parameters). Returns the f32 module."""
     import copy
 
     from fadtk_tpu_torch.dsp.mel import WHISPER_SAMPLES, whisper_log_mel
@@ -893,7 +917,8 @@ def whisper_forward_breakdown(torch, size: str, module=None, runs: int = 10) -> 
         print(f"whisper-{size} forward {name}: {ms:.3f} ms per batch of {BATCH} x 30 s = "
               f"{BATCH * 30 / ms * 1e3:.1f} window-s/s", flush=True)
         profile_forward(torch, f"whisper-{size} {name} B={BATCH}", lambda: run(m))
-    del m16, module
+    del m16
+    return module
 
 
 def clap_forward_breakdown(torch, model) -> None:
@@ -1281,7 +1306,7 @@ def pipeline_run(torch, kernels, work: Path, seconds: float, model_name: str, bf
           f"{rel:.3e} ({limit:g})", flush=True)
     if not rel <= limit:
         raise AssertionError(f"[pipeline {key}] score differs from the cached path by {rel}")
-    return {**launches, **counts, "rate": seconds / pipe_s}
+    return {**launches, **counts, "rate": seconds / pipe_s, "score": score}
 
 
 def pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -> dict:
@@ -1304,8 +1329,10 @@ def pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -> d
                                  f"expected {want} in {batches} device batches")
         if argv and got["saves"] < 2:
             raise AssertionError(f"[pipeline {model_name} {argv}]: {got['saves']} checkpoint saves")
-        for k in totals:
+        for k in KERNEL_KEYS:
             totals[k] += got[k]
+        if (model_name, bf16, argv) == ("w2v2-base", False, ()):
+            totals["score w2v2-base"] = got["score"]
     return totals
 
 
@@ -1391,6 +1418,407 @@ def dp_pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -
         if family:
             totals[f"K3 {family}"] += got["K3"]
     return totals
+
+
+# --device-pipeline under the device convert transport: (model, bf16, the
+# kernel that must launch and how often per device forward).
+TRANSPORT_RUNS = [("w2v2-base", True, ("K1", 12)), ("whisper-base", False, ("K3", 1))]
+# Device against host convert of the same clips: at most 1 int16 LSB apart,
+# at least this share of samples equal (tests/test_torch_convert_transport.py).
+TRANSPORT_MIN_EXACT = 0.995
+TRANSPORT_PRE_QUANT_ATOL = 1e-5
+
+
+def _copy_wavs(src: Path, dst: Path) -> None:
+    """A dataset's clips without its convert/, embeddings/ and stats/ caches."""
+    import shutil
+
+    dst.mkdir(parents=True)
+    for f in sorted(src.glob("*.wav")):
+        shutil.copy2(f, dst / f.name)
+
+
+def transport_run(torch, kernels, root: Path, model_name: str, bf16: bool,
+                  transport: str) -> dict:
+    """One ``--device-pipeline`` CLI run over ``root``'s two datasets (no
+    convert caches: every clip a miss) under ``transport``. Returns each
+    dataset's (mu, cov, n), the score, the launch counts (set to 0 just
+    before the run, read just after it) and the run's seconds."""
+    from fadtk_tpu_torch.cli import main as cli
+    from fadtk_tpu_torch.runner import device_pipeline as pipe
+
+    key = model_name + ("-bf16" if bf16 else "")
+    csv = root / f"{key}-{transport}.csv"
+    stats = {}
+    real = pipe.dataset_stats_device
+
+    def stats_device(model, files, **kw):
+        out = real(model, files, **kw)
+        stats[Path(files).name] = out
+        return out
+
+    env = {"FADTK_TPU_CONVERT_TRANSPORT": transport, "FADTK_TPU_CKPT": "0"}
+    pipe.dataset_stats_device = stats_device
+    sys.argv = ["fadtk", model_name, str(root / "baseline"), str(root / "eval"), str(csv),
+                "--device-pipeline", *(["--bf16"] if bf16 else [])]
+    os.environ.update(env)
+    try:
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        cli.main()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_counts(kernels)
+    finally:
+        pipe.dataset_stats_device = real
+        os.environ.pop("FADTK_TPU_BF16", None)
+        for k in env:
+            os.environ.pop(k)
+    for ds in ("baseline", "eval"):
+        if any((root / ds / sub).exists() for sub in ("convert", "embeddings")):
+            raise AssertionError(f"[transport {key} {transport}] {ds}: a cache was written")
+    fields = csv.read_text().strip().split("\n")[1].split(",")
+    return {"stats": stats, "score": float(fields[3]), "launches": launches, "s": run_s}
+
+
+def transport_clip_check(torch, work: Path) -> None:
+    """The int16 clips of both datasets at 16 kHz (copies without their
+    convert caches, so every clip is a miss), device convert against the
+    host's (the cache writer's ``convert_audio``), and the time of the
+    device convert of the 44.1 kHz misses beside the host convert's."""
+    import numpy as np
+
+    from fadtk_tpu_torch.audio.wavio import float_to_int16
+    from fadtk_tpu_torch.dsp.resample import resample_batch, resample_kaiser
+    from fadtk_tpu_torch.models.registry import get_model
+    from fadtk_tpu_torch.runner import convert
+    from fadtk_tpu_torch.runner.fad import convert_audio
+
+    model = get_model("w2v2-base")  # only its rate (16 kHz) is used
+    loader = convert.ClipLoader(model, workers=8, transport="device")
+    if loader.device.type != "cuda":
+        raise AssertionError(f"device transport on {loader.device}")
+    root = work / "transport" / "clips"
+    for ds in ("baseline", "eval"):
+        _copy_wavs(work / ds, root / ds)
+    files = [f for ds in ("baseline", "eval") for f in sorted((root / ds).glob("*.wav"))]
+    probed = [loader._probe(f) for f in files]
+    misses = [(convert._Miss(i, mono, q), sr) for i, (kind, mono, q, sr) in enumerate(probed)
+              if kind == "miss"]
+    if len(misses) != len(files):
+        raise AssertionError("the copies must have no convert cache")
+    got = loader._convert_misses(misses)
+    equal = total = worst = 0
+    for i, f in enumerate(files):
+        want = convert_audio(f, model.sr).astype(np.int64)
+        d = np.abs(got[i].astype(np.int64) - want) if got[i].shape == want.shape else None
+        if d is None:
+            raise AssertionError(f"{f.name}: {got[i].shape} vs host {want.shape}")
+        equal, total, worst = equal + int((d == 0).sum()), total + d.size, max(worst, int(d.max()))
+    print(f"[transport] {len(files)} clips device vs host convert: {equal / total:.6f} of "
+          f"{total} samples equal, max |diff| {worst} LSB (limits {TRANSPORT_MIN_EXACT}, 1)",
+          flush=True)
+    if worst > 1 or equal / total < TRANSPORT_MIN_EXACT:
+        raise AssertionError("device convert differs from the host convert")
+
+    slow = [(m, sr) for m, sr in misses if sr == 44100]
+    monos = [m.mono for m, _ in slow]
+    # The product before quantization: float32 sums in another order than
+    # the host's BLAS (~1e-6); a TF32 product would be ~1e-3 off.
+    pre = max(float(np.abs(resample_batch(torch.from_numpy(x[None]).cuda(), 44100, model.sr)[0]
+                           .cpu().numpy() - resample_kaiser(x, 44100, model.sr)).max())
+              for x in monos)
+    print(f"[transport] the 44.1 kHz clips' resample on the card before quantization: max "
+          f"|card - host| {pre:.3e} (limit {TRANSPORT_PRE_QUANT_ATOL:g})", flush=True)
+    if not pre <= TRANSPORT_PRE_QUANT_ATOL:
+        raise AssertionError("the card's resample is not float32-accurate")
+
+    def host():
+        return [float_to_int16(resample_kaiser(x, 44100, model.sr)) for x in monos]
+
+    def device():
+        return loader._convert_misses(slow)
+
+    times = {}
+    for name, fn in (("host", host), ("device", device)):
+        fn()
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t0)
+        times[name] = statistics.median(runs)
+    audio_s = sum(x.shape[0] for x in monos) / 44100
+    print(f"[transport] convert of the {len(monos)} 44.1 kHz misses ({audio_s:.1f} audio-s, "
+          f"int16 shipped): device {times['device'] * 1e3:.2f} ms (upload, resample, quantize, "
+          f"download) = {audio_s / times['device']:.1f} audio-s/s; host (one thread) "
+          f"{times['host'] * 1e3:.2f} ms = {audio_s / times['host']:.1f} audio-s/s", flush=True)
+
+
+def transport_runs(torch, kernels, work: Path) -> dict:
+    """``--device-pipeline`` with the device convert transport against the
+    host transport on copies of the two datasets without their convert
+    caches: the resample must run on the card (and not at all under host),
+    the statistics and score agree within ``PIPE_TOL``, and the kernels
+    launch as predicted. Returns the device-transport runs' launches."""
+    import numpy as np
+
+    from fadtk_tpu_torch.audio.wavio import read_wav_int16
+    from fadtk_tpu_torch.dsp import resample
+    from fadtk_tpu_torch.models.registry import get_model
+
+    transport_clip_check(torch, work)
+    devices: list[str] = []
+    real = resample.convert_device
+
+    def recorded(x, sr_in, sr_out):
+        devices.append(x.device.type)
+        return real(x, sr_in, sr_out)
+
+    totals = dict.fromkeys(KERNEL_KEYS, 0)
+    resample.convert_device = recorded
+    try:
+        for model_name, bf16, kernel in TRANSPORT_RUNS:
+            key = model_name + ("-bf16" if bf16 else "")
+            got = {}
+            for transport in ("host", "device"):
+                root = work / "transport" / f"{key}-{transport}"
+                for ds in ("baseline", "eval"):
+                    _copy_wavs(work / ds, root / ds)
+                devices.clear()
+                got[transport] = transport_run(torch, kernels, root, model_name, bf16, transport)
+                where = sorted(set(devices))
+                print(f"[transport {key} {transport}] score {got[transport]['score']}; "
+                      f"{len(devices)} resample batches on {where}; run "
+                      f"{got[transport]['s']:.2f} s; launches {got[transport]['launches']}",
+                      flush=True)
+                if (transport == "device") != (where == ["cuda"]):
+                    raise AssertionError(f"[transport {key} {transport}] resampled on {where}")
+            model = get_model(model_name)
+            forwards = 0
+            for ds in ("baseline", "eval"):
+                lengths = [read_wav_int16(f)[0].shape[0] for f in
+                           sorted((work / ds / "convert" / str(model.sr)).glob("*.wav"))]
+                # The speech step takes the default batch of 16 clips.
+                forwards += (-(-len(lengths) // 16) if kernel[0] == "K1"
+                             else pipeline_forwards(model, lengths))
+            want = dict.fromkeys(KERNEL_KEYS, 0)
+            want[kernel[0]] = kernel[1] * forwards
+            launches = got["device"]["launches"]
+            if {k: launches[k] for k in want} != want:
+                raise AssertionError(f"[transport {key} device]: launches {launches}, "
+                                     f"expected {want}")
+            lim = PIPE_TOL["bfloat16" if bf16 else "float32"]
+            for ds in ("baseline", "eval"):
+                (mu, cov, n), (mu_h, cov_h, n_h) = (got["device"]["stats"][ds],
+                                                   got["host"]["stats"][ds])
+                d_mu, d_cov = np.abs(mu - mu_h).max(), np.abs(cov - cov_h).max()
+                if bf16:
+                    d_mu, d_cov = d_mu / np.abs(mu_h).max(), d_cov / np.abs(cov_h).max()
+                print(f"[transport {key}] {ds}: n={n}; device vs host transport mu {d_mu:.3e} "
+                      f"({lim['mu']:g}), cov {d_cov:.3e} ({lim['cov']:g})"
+                      + (" of the largest value" if bf16 else ""), flush=True)
+                if n != n_h or not (d_mu <= lim["mu"] and d_cov <= lim["cov"]):
+                    raise AssertionError(f"[transport {key}] {ds}: stats differ")
+            s_d, s_h = got["device"]["score"], got["host"]["score"]
+            rel = abs(s_d - s_h) / abs(s_h)
+            print(f"[transport {key}] score device {s_d} vs host {s_h}: relative {rel:.3e} "
+                  f"({lim['score']:g})", flush=True)
+            if not rel <= lim["score"]:
+                raise AssertionError(f"[transport {key}] score differs by {rel}")
+            for k in KERNEL_KEYS:
+                totals[k] += launches[k]
+    finally:
+        resample.convert_device = real
+    return totals
+
+
+# --multihost under torch.distributed.run against the plain one-card run.
+MULTIHOST_RTOL = 1e-6
+
+
+def multihost_check(work: Path, plain_score: float) -> None:
+    """``python -m torch.distributed.run --nnodes 1 --nproc-per-node 1 -m
+    fadtk_tpu_torch w2v2-base ... --device-pipeline --multihost`` on the two
+    datasets: the score must equal the in-process ``--device-pipeline``
+    run's (phase 9)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    csv = work / "multihost.csv"
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    for k in ("FADTK_TPU_BF16", "FADTK_TPU_CONVERT_TRANSPORT", "FADTK_TPU_TORCH_DEVICE"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc-per-node",
+           "1", "--master-addr", "127.0.0.1", "--master-port", str(port), "-m",
+           "fadtk_tpu_torch", "w2v2-base", str(work / "baseline"), str(work / "eval"),
+           str(csv), "--device-pipeline", "--multihost"]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+    print("\n".join((p.stdout + p.stderr).strip().splitlines()[-6:]), flush=True)
+    if p.returncode != 0:
+        raise AssertionError(f"--multihost exited {p.returncode}: {p.stderr[-3000:]}")
+    score = float(csv.read_text().strip().split("\n")[1].split(",")[3])
+    rel = abs(score - plain_score) / abs(plain_score)
+    print(f"[multihost] score {score} vs the one-card run {plain_score}: relative {rel:.3e} "
+          f"({MULTIHOST_RTOL:g}); {time.perf_counter() - t0:.1f} s with the launch", flush=True)
+    if not rel <= MULTIHOST_RTOL:
+        raise AssertionError(f"--multihost score differs by {rel}")
+
+
+# Whisper's tp step at tp = 1 against the plain forward, of the largest value.
+WHISPER_TP_TOL = {"float32": 1e-5, "bfloat16": 0.15}
+
+
+def whisper_tp_check(torch, module, label: str) -> None:
+    """``parallel/whisper_tp.py``'s step at tp = 1 on a full-width module
+    (``label``: whisper-large in the smoke) against ``whisper_forward``,
+    B = 4 windows of 30 s of log-mel features, f32 and bf16, both timed."""
+    import copy
+
+    from fadtk_tpu_torch.dsp.mel import WHISPER_SAMPLES, whisper_log_mel
+    from fadtk_tpu_torch.models import whisper_impl as wi
+    from fadtk_tpu_torch.parallel.mesh import make_mesh
+    from fadtk_tpu_torch.parallel.whisper_tp import (
+        make_sharded_whisper_step,
+        shard_whisper_params,
+    )
+
+    mesh = make_mesh()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    with torch.inference_mode():
+        feats = whisper_log_mel(torch.randn((4, WHISPER_SAMPLES), generator=g,
+                                            device="cuda") * 0.1)
+    for name, m in (("float32", module), ("bfloat16", copy.deepcopy(module).to(torch.bfloat16))):
+        step = make_sharded_whisper_step(m.cfg, mesh)
+        shard = shard_whisper_params(m, mesh)
+        with torch.inference_mode():
+            got = step(shard, feats)
+            want = wi.whisper_forward(m, feats)
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        tp_ms = cuda_ms(torch, lambda: step(shard, feats), runs=3, groups=3)
+
+        def plain():
+            with torch.inference_mode():
+                return wi.whisper_forward(m, feats)
+
+        plain_ms = cuda_ms(torch, plain, runs=3, groups=3)
+        print(f"[whisper tp] {label} {name} B=4 tp=1: {tuple(got.shape)}, "
+              f"max_abs_diff {diff:.3e} of max {scale:.3e} = {diff / scale:.3e} "
+              f"(limit {WHISPER_TP_TOL[name]:g}); step {tp_ms:.3f} ms, plain forward "
+              f"{plain_ms:.3f} ms", flush=True)
+        if got.shape != (4, 2, m.cfg.d_model) or not diff <= WHISPER_TP_TOL[name] * scale:
+            raise AssertionError(f"whisper tp {name} differs from the plain forward")
+        del m, shard
+
+
+def _filled(schema: dict, seed: int) -> dict:
+    """A state dict of the schema's shapes with seeded values: running
+    variances, snake alphas and weight-norm gains positive."""
+    import numpy as np
+
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, shape in schema.items():
+        if k.endswith(("running_var", ".alpha", "weight_g")):
+            x = rng.uniform(0.5, 1.5, shape)
+        else:
+            x = rng.standard_normal(shape) * 0.05
+        out[k] = torch.from_numpy(np.asarray(x, np.float32))
+    return out
+
+
+def convert_checks(torch, kernels, work: Path) -> None:
+    """The port's converter without JAX: ``convert_cli --dry-run`` on every
+    recorded schema; then the dac-44kHz and clap-laion-music schemas filled
+    with seeded values, converted with ``convert_cli --checkpoint``, loaded
+    through ``FADTK_TPU_CHECKPOINTS`` by the models' own ``load_model`` and
+    run at full width on the card and the CPU (``model_card_vs_cpu``); the
+    CLAP forward launches K3."""
+    import json as _json
+
+    import numpy as np
+
+    from fadtk_tpu_torch.weights import convert_cli, schemas
+
+    root = work / "convert"
+    root.mkdir()
+    recorded = {"dac-44kHz": schemas.dac_44khz_encoder_schema(),
+                "clap-laion-audio": schemas.laion_clap_pt_schema("HTSAT-tiny"),
+                "clap-laion-music": schemas.laion_clap_pt_schema("HTSAT-base"),
+                "clap-2023": schemas.msclap_2023_audio_schema(),
+                "cdpam-acoustic": schemas.cdpam_base_encoder_schema(),
+                "vggish": schemas.vggish_schema()}
+    argv = sys.argv
+    saved = {k: os.environ.get(k) for k in ("FADTK_TPU_CHECKPOINTS", "FADTK_TPU_RANDOM_WEIGHTS")}
+    try:
+        for name, schema in recorded.items():
+            path = root / f"{name}.json"
+            path.write_text(_json.dumps({k: list(v) for k, v in schema.items()}))
+            sys.argv = ["convert_cli", name, "--dry-run", str(path)]
+            convert_cli.main()
+            print(f"[convert] --dry-run {name}: {len(schema)} keys OK", flush=True)
+        if any(m == "jax" or m.startswith(("jax.", "fadtk_tpu.")) for m in sys.modules):
+            raise AssertionError("the converter imported jax or the JAX package")
+
+        os.environ["FADTK_TPU_CHECKPOINTS"] = str(root / "checkpoints")
+        os.environ.pop("FADTK_TPU_RANDOM_WEIGHTS", None)
+        rng = np.random.default_rng(SEED)
+        for name, ck, seconds, sr, check in (
+            ("dac-44kHz", "weights_44khz.pth", 5, 44100, "encoder.block.6.bias"),
+            ("clap-laion-music", "music_audioset_epoch_15_esc_90.14.pt", 10, 48000,
+             "module.audio_projection.2.bias"),
+        ):
+            sd = _filled(recorded[name], SEED + len(name))
+            torch.save({"state_dict": sd}, root / ck)
+            t0 = time.perf_counter()
+            sys.argv = ["convert_cli", name, "--checkpoint", str(root / ck)]
+            convert_cli.main()
+            print(f"[convert] {name}: {ck} -> {sorted(p.name for p in (root / 'checkpoints').glob('*.npz'))} "
+                  f"in {time.perf_counter() - t0:.1f} s", flush=True)
+            reset_counts(kernels)
+            model = model_card_vs_cpu(torch, name, rng.standard_normal(seconds * sr) * 0.1)
+            k3 = read_counts(kernels)["K3"]
+            loaded = (model.module.conv_out.bias if name == "dac-44kHz"
+                      else model.module.audio_projection.linear2.bias)
+            if not torch.equal(loaded.cpu(), sd[check]):
+                raise AssertionError(f"{name}: the model did not load the converted weights")
+            print(f"[convert] {name}: the converted .npz loaded on the card and the CPU; "
+                  f"K3 launches {k3}", flush=True)
+            if (k3 > 0) != name.startswith("clap"):
+                raise AssertionError(f"{name}: K3 launched {k3} times")
+            del model
+    finally:
+        sys.argv = argv
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def graft_twin_check(torch) -> None:
+    """``fadtk_tpu_torch.graft_entry``: ``entry()``'s forward on the card and
+    ``dryrun_multichip(1)``'s seven paths."""
+    from fadtk_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    with torch.inference_mode():
+        hidden, mask = fn(*args)
+    torch.cuda.synchronize()
+    if hidden.shape[:2] != (13, 2) or not torch.isfinite(hidden).all():
+        raise AssertionError(f"entry(): {tuple(hidden.shape)} or non-finite")
+    print(f"[graft] entry(): hidden {tuple(hidden.shape)}, mask {tuple(mask.shape)} on "
+          f"{hidden.device}", flush=True)
+    graft_entry.dryrun_multichip(1)
+    print(f"[graft] dryrun_multichip(1): seven paths on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # Device scoring against the host float64 paths (metric/device_scoring.py):
@@ -1820,7 +2248,10 @@ def main() -> int:
         whisper_forward_breakdown(torch, "base", whisper.module)
         del whisper
         phase("whisper-large forward, batch 16 x 30 s: f32 and bf16")
-        whisper_forward_breakdown(torch, "large", runs=3)
+        large = whisper_forward_breakdown(torch, "large", runs=3)
+        phase("whisper tp: the tensor-parallel step at tp=1 on whisper-large, B=4, f32 and bf16")
+        whisper_tp_check(torch, large, "whisper-large")
+        del large
         torch.cuda.empty_cache()
 
         for name in ("clap-laion-music", "clap-laion-audio", "clap-2023"):
@@ -1845,6 +2276,11 @@ def main() -> int:
         del cdpam
         torch.cuda.empty_cache()
 
+        phase("convert: convert_cli --dry-run on every recorded schema; dac-44kHz and "
+              "clap-laion-music converted from seeded checkpoints, card vs cpu")
+        convert_checks(torch, (fa, fr, k3), work)
+        torch.cuda.empty_cache()
+
         phase("main paths: CLI w2v2-base, wavlm-base-plus, encodec-emb, encodec-emb-48k, "
               "dac-44kHz, whisper-base, vggish, clap-laion-music, clap-2023, cdpam-acoustic f32 "
               "and --bf16; MERT --bf16")
@@ -1859,6 +2295,13 @@ def main() -> int:
               "encodec-emb-48k, encodec-emb with the fused block (f32 and --bf16), "
               "cdpam-acoustic")
         dp_pipeline = dp_pipeline_runs(torch, (fa, fr, k3), work, cached, seconds)
+
+        phase("device transport: --device-pipeline with FADTK_TPU_CONVERT_TRANSPORT=device "
+              "(w2v2-base --bf16, whisper-base) against the host transport")
+        transport = transport_runs(torch, (fa, fr, k3), work)
+        phase("multihost: torch.distributed.run -m fadtk_tpu_torch w2v2-base --device-pipeline "
+              "--multihost")
+        multihost_check(work, pipeline["score w2v2-base"])
 
         phase("device pipeline: the w2v2-base f32 gap to the cached path, split by source")
         sys.path.insert(0, str(REPO / "scripts"))
@@ -1881,6 +2324,8 @@ def main() -> int:
         package_check(work)
         phase("scoring: host float64 against device, FAD-inf sweep and per-song")
         scoring_timings(torch, work, smi)
+        phase("graft twin: fadtk_tpu_torch.graft_entry entry() and dryrun_multichip(1)")
+        graft_twin_check(torch)
 
         if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
             raise AssertionError("jax was imported")
@@ -1888,16 +2333,20 @@ def main() -> int:
         source = "fadtk_tpu_torch/csrc/flash_attention_packed.cu"
 
         def paths(key: str) -> dict:
-            """A kernel's launches over the cached-path CLI runs and the
-            non-speech ``--device-pipeline`` runs, and their sum."""
-            return {"launches": launches[key] + dp_pipeline[key],
-                    "launches_by_path": {"cached": launches[key],
-                                         "device_pipeline": dp_pipeline[key]}}
+            """A kernel's launches over the cached-path CLI runs, the
+            non-speech ``--device-pipeline`` runs and (K3's Whisper form) the
+            device-transport runs, and their sum."""
+            by_path = {"cached": launches[key], "device_pipeline": dp_pipeline[key]}
+            if key == "K3 whisper":
+                by_path["device_transport"] = transport["K3"]
+            return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
         print(json.dumps({"kernels": [
             {"name": "flash_attention_packed", "route": "cuda", "source": source,
              "replaces": "fadtk_tpu/ops/flash_attention.py:703",
-             "launches": launches["K1"], **k1},
+             "launches": launches["K1"] + transport["K1"],
+             "launches_by_path": {"cached": launches["K1"], "device_transport": transport["K1"]},
+             **k1},
             {"name": "flash_attention_packed (factorized bias)", "route": "cuda",
              "source": source,
              "replaces": "fadtk_tpu/ops/flash_attention.py:703 (bias term :559-562)",

@@ -6,7 +6,8 @@ Same command line, CSV format and summary line as ``fadtk_tpu.cli.main``
     python -m fadtk_tpu_torch <model> <baseline> <eval> [csv] [-w N] [--bf16]
                               [--inf [--seed S] | --indiv] [--device-scoring [--devices N]]
                               [--frechet-method eigh|reference|newton_schulz]
-                              [--device-pipeline [--batch N] [--tp T] [--devices N]]
+                              [--device-pipeline [--batch N] [--tp T] [--devices N]
+                               [--multihost]]
 
 ``--inf`` extrapolates FAD-inf from seeded subsamples of the eval set and
 ``--indiv`` writes per-song scores to a CSV (runner/fad.py); both read the
@@ -14,8 +15,10 @@ embedding cache, on the host in float64 or, with ``--device-scoring``, on the
 device (metric/device_scoring.py). ``--device-pipeline`` scores any model
 without embedding caches (runner/device_pipeline.py). Over several GPUs
 ``--device-pipeline`` and ``--device-scoring`` run under ``torchrun``, one
-process per GPU (parallel/mesh.py), and rank 0 reports. ``--multihost`` is
-accepted and exits with a message: it is not ported yet.
+process per GPU (parallel/mesh.py), and rank 0 reports. ``--multihost``
+joins a job over several nodes (``torchrun --nnodes N``, parallel/multihost.py)
+before anything touches the device and meshes ``--device-pipeline`` over all
+its ranks, with each tp group on one node.
 """
 
 from __future__ import annotations
@@ -86,20 +89,23 @@ def main() -> None:
                     help="rows per device step for --device-pipeline: clips for the "
                          "speech family (default 16 x dp), chunks or clips for the others "
                          "(default the family's preferred batch x dp)")
-    not_ported = {
-        "multihost": ap.add_argument("--multihost", action="store_true", help="(not ported yet)"),
-    }
+    ap.add_argument("--multihost", action="store_true",
+                    help="multi-node mode for --device-pipeline: join the job's process "
+                         "group (run under torchrun --nnodes N, the same command on every "
+                         "node) and mesh over all its ranks; tp groups stay within a node")
     args = ap.parse_args()
 
     if args.device_pipeline and (args.inf or args.indiv):
         raise SystemExit("--device-pipeline supports plain scoring only "
                          "(--inf/--indiv read the embedding cache)")
-    for dest, action in not_ported.items():
-        if getattr(args, dest) != action.default:
-            raise SystemExit(
-                f"{action.option_strings[0]} is not ported to fadtk_tpu_torch yet; "
-                "use `python -m fadtk_tpu` for it"
-            )
+    if args.multihost and not args.device_pipeline:
+        raise SystemExit("--multihost requires --device-pipeline")
+    if args.multihost:
+        # Before anything touches the device: the process group picks the
+        # rank's card (LOCAL_RANK) first.
+        from ..parallel import multihost
+
+        multihost.initialize()
 
     if args.bf16:
         os.environ["FADTK_TPU_BF16"] = "1"
@@ -165,19 +171,25 @@ def _score(args, model, baseline, eval_, scoring_mesh=None) -> None:
 
 
 @contextlib.contextmanager
-def _job_mesh(devices: int | None, tp: int = 1):
+def _job_mesh(devices: int | None, tp: int = 1, multihost: bool = False):
     """This process's mesh over the torchrun job (or dp = tp = 1 without
-    one); the process group that ``make_mesh`` joined is left on exit."""
+    one); the process group that ``make_mesh`` or ``multihost.initialize``
+    joined is left on exit."""
     import torch.distributed as dist
 
     from ..parallel.mesh import make_mesh
 
-    launched = not dist.is_initialized()
-    mesh = make_mesh(devices, tp=tp)
+    launched = multihost or not dist.is_initialized()
+    if multihost:
+        from ..parallel import multihost as mh
+
+        mesh = mh.global_mesh(tp=tp)
+    else:
+        mesh = make_mesh(devices, tp=tp)
     try:
         yield mesh
     finally:
-        if launched and dist.is_initialized():  # make_mesh joined torchrun's group
+        if launched and dist.is_initialized():  # this CLI joined the group
             dist.destroy_process_group()
 
 
@@ -190,7 +202,7 @@ def _device_scoring(args, model, baseline, eval_) -> None:
 def _device_pipeline(args, model, baseline, eval_) -> None:
     from ..runner.device_pipeline import score_datasets_device
 
-    with _job_mesh(args.devices, tp=args.tp) as mesh:
+    with _job_mesh(args.devices, tp=args.tp, multihost=args.multihost) as mesh:
         log.info(f"device pipeline mesh: dp={mesh.dp} x tp={mesh.tp} on {mesh.device}")
         try:
             score = score_datasets_device(model, baseline, eval_, mesh=mesh, batch=args.batch)

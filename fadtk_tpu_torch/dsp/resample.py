@@ -1,4 +1,5 @@
-"""Kaiser-windowed sinc polyphase resampler (host, numpy/BLAS).
+"""Kaiser-windowed sinc polyphase resampler: on the host (numpy/BLAS) and on
+the device (torch).
 
 Numerically equivalent to torchaudio's ``sinc_interp_kaiser`` resampler with the
 exact constants the reference pins for SoX-HQ parity (reference
@@ -9,6 +10,11 @@ This is the host half of ``fadtk_tpu.dsp.resample``, kept line for line so that
 ``resample_kaiser`` is bit-identical to it (tests/test_torch_host.py): the same
 gcd reduction, index grid, Kaiser window (i0), edge padding
 (width, width + orig) and ceil-based output length as torchaudio.
+
+The device half (``resample_batch``, ``convert_device``) is the port of the
+JAX package's accelerator resample: the same filter bank applied to a
+(B, T) tensor as framing plus one float32 product, then, for the convert
+cache's transform, the 16-bit PCM quantization on the device.
 """
 
 from __future__ import annotations
@@ -118,3 +124,101 @@ def resampled_length(n: int, sr_in: int, sr_out: int) -> int:
     """Output length of resampling an n-sample clip (torchaudio's ceil rule)."""
     gcd = math.gcd(int(sr_in), int(sr_out))
     return int(math.ceil((sr_out // gcd) * n / (sr_in // gcd)))
+
+
+def source_samples_needed(n_out: int, sr_in: int, sr_out: int) -> int:
+    """Source samples whose values the first ``n_out`` output samples depend
+    on: truncating the source here (instead of resampling the full clip and
+    truncating the output) leaves those outputs bit-identical — output i reads
+    source indices < i*orig/new + width + 1, and the polyphase kernel pads the
+    tail with zeros beyond the signal either way."""
+    gcd = math.gcd(int(sr_in), int(sr_out))
+    orig, new = sr_in // gcd, sr_out // gcd
+    _, width, _, _ = kaiser_sinc_kernel(int(sr_in), int(sr_out))
+    return int(math.ceil(n_out * orig / new)) + width + orig
+
+
+#: Elements of one framed block of windows, (C, K): every product the
+#: device resample makes is one (C, K) x (K, new) GEMM of this fixed shape.
+_BLOCK_ELEMENTS = 1 << 22
+
+
+def _filters(sr_in: int, sr_out: int, device) -> "torch.Tensor":
+    import torch
+
+    kernels = kaiser_sinc_kernel(sr_in, sr_out)[0]
+    return torch.from_numpy(np.ascontiguousarray(kernels.T)).to(device)  # (K, new)
+
+
+def _resample_device(x: "torch.Tensor", sr_in: int, sr_out: int) -> "torch.Tensor":
+    """Resample a float32 batch (B, T) where it lies.
+
+    Framing + GEMM, as the host path and the mel frontend do: window j covers
+    the padded input [j*orig, j*orig + K), a strided ``unfold`` view; the
+    (K, new) filters apply as float32 matmuls and the phases interleave along
+    the last axis. Every product has the one shape (C, K) x (K, new), each
+    row's windows taken C at a time and the last block zero-padded: a GEMM
+    library picks its algorithm (and so its summation order) by shape, and a
+    fixed shape keeps each output sample independent of the clip's length
+    and of the batch, so a bucket-padded or truncated clip gives the same
+    samples bit for bit. The products run at full float32 precision: a TF32
+    product (10-bit mantissa) would put ~1e-3 relative error on samples that
+    a 16-bit PCM quantization follows (it needs ~3e-5), so the float32
+    matmul precision is pinned to "highest" around them and restored after.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    _, width, orig, new = kaiser_sinc_kernel(sr_in, sr_out)
+    kt = _filters(sr_in, sr_out, x.device)
+    taps = kt.shape[0]
+    b, length = x.shape
+    windows = F.pad(x, (width, width + orig)).unfold(1, taps, orig)  # (B, n_blocks, K) view
+    n_blocks = windows.shape[1]
+    rows = max(1, _BLOCK_ELEMENTS // taps)
+    block = torch.zeros((rows, taps), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, n_blocks, new), dtype=torch.float32, device=x.device)
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        for r in range(b):
+            for s in range(0, n_blocks, rows):
+                e = min(s + rows, n_blocks)
+                if e - s < rows:
+                    block.zero_()
+                block[: e - s] = windows[r, s:e]
+                out[r, s:e] = (block @ kt)[: e - s]
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    return out.reshape(b, -1)[:, : int(math.ceil(new * length / orig))]
+
+
+def resample_batch(x: "torch.Tensor", sr_in: int, sr_out: int) -> "torch.Tensor":
+    """Device API for batched audio: (B, T) float32 -> (B, T') where ``x``
+    lies. Identity when the rates match."""
+    if sr_in == sr_out:
+        return x
+    return _resample_device(x, int(sr_in), int(sr_out))
+
+
+def convert_device(x: "torch.Tensor", sr_in: int, sr_out: int) -> "torch.Tensor":
+    """The convert cache's transform where ``x`` lies: (B, T_src) mono
+    batches -> (B, T_dst) int16, i.e. the Kaiser resample and the cached
+    wav's 16-bit PCM quantization (scale 32768, round half to even as
+    ``torch.round`` does, clamp — ``audio/wavio.py::float_to_int16``; exact
+    in float32 since |values| < 2^15 << 2^24).
+
+    ``x`` may be int16 (source audio that is 16-bit-PCM exact ships at half
+    the bytes and rescales here, bit-identically) or float32.
+
+    Against the host convert path (``resample_kaiser`` + ``float_to_int16``):
+    the same filter bank, but the device GEMM sums in another order than the
+    host BLAS, so a small share of samples lands one int16 LSB apart.
+    """
+    import torch
+
+    if x.dtype == torch.int16:
+        x = x.float() * (1.0 / 32768.0)
+    if sr_in != sr_out:
+        x = _resample_device(x, int(sr_in), int(sr_out))
+    return torch.clamp(torch.round(x * 32768.0), -32768.0, 32767.0).to(torch.int16)

@@ -55,6 +55,11 @@ class Mesh:
         return self.dp_rank * self.tp + self.tp_rank
 
 
+def tp_groups(world: int, tp: int) -> list[list[int]]:
+    """The ranks of each tp group, dp index by dp index: consecutive ranks."""
+    return [list(range(d * tp, (d + 1) * tp)) for d in range(world // tp)]
+
+
 def _launched_by_torchrun() -> bool:
     return int(os.environ.get("WORLD_SIZE", "1")) > 1 and "RANK" in os.environ
 
@@ -92,8 +97,8 @@ def make_mesh(n_devices: int | None = None, tp: int | None = None) -> Mesh:
     # collective); an axis of one rank gets none.
     dp_group = tp_group = None
     if tp > 1:
-        for d in range(dp):
-            g = dist.new_group([d * tp + i for i in range(tp)])
+        for d, ranks in enumerate(tp_groups(world, tp)):
+            g = dist.new_group(ranks)
             if d == rank // tp:
                 tp_group = g
     if dp > 1:

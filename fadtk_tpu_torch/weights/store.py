@@ -78,6 +78,13 @@ def unflatten_pytree(flat: dict[str, np.ndarray]):
     return listify(root)
 
 
+def save_params(params, path: PathLike) -> None:
+    """Write a parameter tree as the flat ``.npz`` both packages read."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **flatten_pytree(params))
+
+
 def load_params(path: PathLike):
     with np.load(path) as data:
         return unflatten_pytree({k: data[k] for k in data.files})

@@ -192,9 +192,12 @@ def test_clip_loader_equals_cached_load_audio(data):
 
 
 def test_clip_loader_device_transport_is_not_ported(data, monkeypatch):
+    """The device transport is ported now (tests/test_torch_convert_transport.py
+    holds it against the JAX package's): it builds on the model's device, and
+    an unknown transport still raises."""
     monkeypatch.setenv("FADTK_TPU_CONVERT_TRANSPORT", "device")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        convert.ClipLoader(data["model"])
+    loader = convert.ClipLoader(data["model"])
+    assert loader.transport == "device" and loader.device == data["model"].device
     monkeypatch.setenv("FADTK_TPU_CONVERT_TRANSPORT", "disk")
     with pytest.raises(ValueError, match="must be"):
         convert.ClipLoader(data["model"])
@@ -326,7 +329,7 @@ def test_cli_device_pipeline_writes_the_csv_row(data, tmp_path, monkeypatch):
     (("tiny-speech", "--devices", "2"), "require --device-pipeline"),
     (("tiny-speech", "--device-pipeline", "--tp", "2"), "torchrun"),
     (("vggish", "--device-pipeline", "--devices", "2"), "torchrun"),
-    (("tiny-speech", "--multihost"), "--multihost is not ported"),
+    (("tiny-speech", "--multihost"), "--multihost requires --device-pipeline"),
 ])
 def test_cli_exits_with_message(data, monkeypatch, argv, message):
     model, *flags = argv

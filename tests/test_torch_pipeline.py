@@ -117,9 +117,11 @@ def test_port_cli_on_cpu(scored, monkeypatch):
 
 
 def test_port_cli_rejects_unported_flags(monkeypatch, tmp_path):
+    """Every flag is ported now; ``--multihost`` still exits with a message
+    without ``--device-pipeline``, as the JAX package's CLI does."""
     from fadtk_tpu_torch.cli.main import main
 
     monkeypatch.setattr(sys, "argv", ["fadtk", "w2v2-base", str(tmp_path), str(tmp_path),
                                       "--multihost"])
-    with pytest.raises(SystemExit, match="--multihost is not ported"):
+    with pytest.raises(SystemExit, match="--multihost requires --device-pipeline"):
         main()
