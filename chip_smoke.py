@@ -36,26 +36,35 @@ Phases:
      bf16, and the bf16 bias case again through the strided head-split views
      of packed (B, T, H*D) tensors; ragged n_valid, SDPA on the same
      head-major tensors as the yardstick;
-   - K3, the fused log-mel spectrogram: Whisper's geometry at B=16 (3000
-     frames of 400 per 30 s window, read through the strided view of the
-     reflect-padded signal, F=201, M=80) in ``log10_clamp``, with the
-     even/odd fold of its periodic-window bases; ``ln_offset`` at VGGish's
-     bases (W=400 in a 512-point DFT: no fold; F=257, M=64) on 256 x 96
-     contiguous frames; ``db_clamp`` at CLAP's (W=1024, hop 480, F=513, M=64,
-     48 kHz; folded) on B=16 x 1001 contiguous frames, and on the strided
-     view of the reflect-padded signal at the batch one CLAP forward takes
-     (32 chunks): CLAP-LAION's 48 kHz / hop 480 / 1001 frames and MS-CLAP's
-     44.1 kHz / hop 320 / 965 frames; the other two modes on
-     Whisper's strided frames; ragged tiles (N = 1, 65, 130) through both
-     templates. The library yardstick is the chain torch.stft (periodic
-     Hann) -> abs()² -> mel matmul -> clamp/log on the same signal; the
-     bound counts the folded DFT where the bases fold and the mel matrix's
-     nonzeros;
+   - K3, the fused log-mel spectrogram, through the body its layout picks
+     for the bases (printed beside each row): Whisper's geometry at B=16
+     (3000 frames of 400 per 30 s window, read through the strided view of
+     the reflect-padded signal, F=201, M=80) in ``log10_clamp`` on the
+     folded FMA body (periodic-window bases, n_fft 400); ``ln_offset`` at
+     VGGish's bases (W=400 in a 512-point DFT; F=257, M=64) on 256 x 96
+     contiguous frames and ``db_clamp`` at CLAP's (W=1024, hop 480, F=513,
+     M=64, 48 kHz) on B=16 x 1001 contiguous frames, both on the FFT body
+     (windowed power-of-two DFTs); ``db_clamp`` on the strided view of the
+     reflect-padded signal at the batch one CLAP forward takes (32 chunks):
+     CLAP-LAION's 48 kHz / hop 480 / 1001 frames and MS-CLAP's 44.1 kHz /
+     hop 320 / 965 frames (FFT body), and two of those chunks in the other
+     two modes; the other two modes on Whisper's strided frames; an odd hop
+     (321: the FFT body's one-float loads); ragged tiles (N = 1, 63, 65,
+     130) through every body: Whisper's bases (folded), VGGish's and CLAP's
+     (FFT) and random (1024, 513) bases (unfolded). The library yardstick is
+     the chain torch.stft (periodic Hann) -> abs()² -> mel matmul ->
+     clamp/log on the same signal; the bound counts the least work for the
+     function (a real FFT of n_fft points, the split and power over the mel
+     bands' bins, the mel matrix's nonzeros), with the GEMM formulation's
+     bound (the folded DFT where the bases fold) printed beside;
 4. full-width forwards (random weights from a seed) of w2v2-base,
    wavlm-base-plus and MERT-v1-95M (24 kHz, T=749): f32 on the card against
-   f32 on the CPU, same weights, one 10 s clip; then batch-16 forward times
-   for each (f32, bf16, bf16 with plain attention) and the device time by
-   kernel from torch.profiler;
+   f32 on the CPU, same weights, one 10 s clip; for w2v2-base then one f32
+   forward of that clip (T=499) with ``FADTK_TPU_FLASH_F32=1``, which must
+   launch K1 in all 12 layers under ``FADTK_TPU_FLASH_F32_MIN_T=256`` and
+   in none without it (the JAX package's routing); then batch-16 forward
+   times for each (f32, bf16, bf16 with plain attention) and the device time
+   by kernel from torch.profiler;
 5. the codec families through their model classes, f32 on the card against
    f32 on the CPU, same weights: encodec-emb on one 10 s clip with the fused
    block's knob (FADTK_TPU_FUSED_RESNET) on and off, encodec-emb-48k on a
@@ -101,8 +110,8 @@ Phases:
    clap-2023 and cdpam-acoustic in f32 and ``--bf16``. Every kernel launch
    count is set to 0 just before each run and read just after it: K1/K1b
    must launch 12 times per speech device batch, K4 (f32) or K4b (its bf16
-   tensor-core form) 4 times per encodec-emb forward, K3 once per whisper or
-   CLAP forward, and no kernel elsewhere;
+   tensor-core form) 4 times per encodec-emb forward, K3 once per whisper
+   (folded body) or CLAP forward (FFT body), and no kernel elsewhere;
 9. the device pipeline through the CLI (``--device-pipeline``: no embedding
    caches, statistics on the card) on the same two datasets: w2v2-base and
    wavlm-base-plus in f32 and ``--bf16``, and w2v2-base f32 with ``--batch 4``
@@ -542,26 +551,48 @@ def k4_path_checks(torch, fr) -> dict:
     return summed
 
 
-def log_mel_bound(n: int, w: int, f: int, m: int, in_bytes: int, fold: bool,
+def log_mel_bound(n: int, w: int, f: int, m: int, in_bytes: int, bins: int,
                   mel_nnz: int) -> dict:
     """The least time the card could take for one fused log-mel call over n
-    frames: the DFT products at the f32 rate, 2·N·W·2F FLOP, or half that
-    (2·N·F·W) where the bases fold (a periodic window with W = n_fft:
-    ``dre[W-n] = dre[n]``, ``dim[W-n] = -dim[n]``), plus the mel product over
-    the mel matrix's nonzeros (2·N·nnz), against the frames' source read once
-    (``in_bytes``: the padded signal for the strided view, the (N, W) frames
-    otherwise), the bases and the mel matrix read once and the (N, M) output
+    frames, with the least work for the function: the window (W products),
+    a real FFT of n_fft = 2 (F - 1) points as an n_fft/2-point complex FFT,
+    5 (n_fft/2) log2(n_fft/2) FLOP, the split pass (16 FLOP a bin) and the
+    power (3) over the ``bins`` rows the mel bands use, and the mel product
+    over the mel matrix's nonzeros (2 nnz), per frame; against the frames'
+    source read once (``in_bytes``: the padded signal for the strided view,
+    the (N, W) frames otherwise), the window (n_fft floats), the twiddles
+    (n_fft complex), the mel matrix read once and the (N, M) output
     written once, all float32."""
+    p = f - 1
+    flops = n * (w + 5 * p * math.log2(p) + 19 * bins + 2 * mel_nnz)
+    nbytes = in_bytes + 4 * (2 * p + 4 * p + f * m) + 4 * n * m
+    return {"flops": flops, "bytes": nbytes, **_roofline(flops, nbytes, "float32")}
+
+
+def log_mel_gemm_bound(n: int, w: int, f: int, m: int, in_bytes: int, fold: bool,
+                       mel_nnz: int) -> dict:
+    """The same call's bound in the formulation of the Pallas kernel and the
+    FMA bodies, the DFT as a product: 2·N·W·2F FLOP, or half that (2·N·F·W)
+    where the bases fold (a periodic window with W = n_fft: ``dre[W-n] =
+    dre[n]``, ``dim[W-n] = -dim[n]``), plus the mel product over the mel
+    matrix's nonzeros (2·N·nnz), against the frames' source, the bases and
+    the mel matrix read once and the (N, M) output written once."""
     flops = 2 * n * w * f * (1 if fold else 2) + 2 * n * mel_nnz
     nbytes = in_bytes + 4 * (2 * w * f + f * m) + 4 * n * m
     return {"flops": flops, "bytes": nbytes, **_roofline(flops, nbytes, "float32")}
 
 
 def check_log_mel(torch, k3, label: str, frames, bases, log_mode: str, log_offset: float = 0.0,
-                  in_bytes: int | None = None, library=None) -> dict:
-    """K3 vs its twin on ``frames``; with ``library`` (the torch.stft chain
-    on the frames' signal), also that chain's agreement, and the CUDA-event
-    times of kernel, twin and chain beside the bound."""
+                  in_bytes: int | None = None, library=None, body: str | None = None) -> dict:
+    """K3 vs its twin on ``frames``, through the body the bases' layout
+    names (``body``, when given, must be it); with ``library`` (the
+    torch.stft chain on the frames' signal), also that chain's agreement,
+    and the CUDA-event times of kernel, twin and chain beside the bound (the
+    least work for the function: an FFT) and the GEMM formulation's."""
+    layout = k3.kernel_layout(*bases)
+    if body is not None and layout.body != body:
+        raise AssertionError(f"{label}: the {layout.body} body serves these bases, not {body}")
+
     def kernel():
         return k3.fused_log_mel(frames, *bases, log_mode=log_mode, log_offset=log_offset)
 
@@ -575,25 +606,28 @@ def check_log_mel(torch, k3, label: str, frames, bases, log_mode: str, log_offse
         raise AssertionError(f"{label}: {tuple(out.shape)} vs {tuple(ref.shape)} or non-finite")
     err = (out - ref).abs().max().item()
     tol = K3_ATOL[log_mode]
-    line = (f"{label}: {tuple(out.shape)} max_abs_err={err:.3e} (atol {tol:g}; "
-            f"max|twin| {ref.abs().max().item():.3f})")
-    result = {"max_abs_err": err}
+    line = (f"{label} [{layout.body} body]: {tuple(out.shape)} max_abs_err={err:.3e} (atol "
+            f"{tol:g}; max|twin| {ref.abs().max().item():.3f})")
+    result = {"max_abs_err": err, "body": layout.body}
     if library is not None:
         lib_err = (library().reshape(ref.shape) - ref).abs().max().item()
         ms, plain_ms, library_ms = (cuda_ms(torch, fn) for fn in (kernel, twin, library))
         w, f, m = frames.shape[-1], bases[0].shape[1], bases[2].shape[1]
-        layout = k3.kernel_layout(*bases)
-        bound = log_mel_bound(ref.numel() // m, w, f, m, in_bytes, layout.fold,
-                              int((bases[2] != 0).sum()))
-        old = log_mel_bound(ref.numel() // m, w, f, m, in_bytes, False, f * m)
+        n, nnz = ref.numel() // m, int((bases[2] != 0).sum())
+        band = layout.band.long()
+        bins = int((band[1].max() - band[0][band[0] < band[1]].min()).item())
+        bound = log_mel_bound(n, w, f, m, in_bytes, bins, nnz)
+        gemm = log_mel_gemm_bound(n, w, f, m, in_bytes, k3.bases_fold(*bases[:2]), nnz)
         result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
-                      bound_by=bound["bound_by"], library_ms=library_ms)
+                      bound_by=bound["bound_by"], library_ms=library_ms,
+                      gemm_bound_ms=gemm["bound_ms"])
         line += (f"; stft chain vs twin {lib_err:.3e}; kernel={ms:.4f} ms plain={plain_ms:.4f} "
-                 f"ms stft chain={library_ms:.4f} ms; bases fold: {layout.fold}; bound "
-                 f"{bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']} "
-                 f"({bound['flops'] / 1e9:.3f} GFLOP, {bound['bytes'] / 1e6:.2f} MB"
-                 f"{cuda_core_note(bound['flops'], bound['bytes'], 'float32')}; unfolded "
-                 f"DFT and dense mel product: {old['bound_ms'] * 1e3:.2f} us)")
+                 f"ms stft chain={library_ms:.4f} ms; bound (FFT) {bound['bound_ms'] * 1e3:.2f} "
+                 f"us by {bound['bound_by']} ({bound['flops'] / 1e9:.3f} GFLOP, "
+                 f"{bound['bytes'] / 1e6:.2f} MB); GEMM formulation "
+                 f"{gemm['bound_ms'] * 1e3:.2f} us by {gemm['bound_by']} "
+                 f"({gemm['flops'] / 1e9:.3f} GFLOP"
+                 f"{cuda_core_note(gemm['flops'], gemm['bytes'], 'float32')})")
         if not lib_err <= 10 * tol:
             raise AssertionError(f"{label}: the stft chain differs from the twin by {lib_err}")
     print(line, flush=True)
@@ -604,9 +638,10 @@ def check_log_mel(torch, k3, label: str, frames, bases, log_mode: str, log_offse
 
 
 def k3_path_checks(torch, k3) -> dict:
-    """K3 in its three modes at the mel families' geometries, and ragged
-    tiles. Returns the kernels-line entries of Whisper's B=16 call and of the
-    two CLAP frontends' B=32 calls, by family."""
+    """K3 in its three modes and three bodies at the mel families'
+    geometries, and ragged tiles. Returns the kernels-line entries of
+    Whisper's B=16 call and of the two CLAP frontends' B=32 calls, by
+    family."""
     import torch.nn.functional as F
 
     from fadtk_tpu_torch.dsp import mel as dmel
@@ -629,7 +664,8 @@ def k3_path_checks(torch, k3) -> dict:
         dmel.whisper_frames(audio), wb, "log10_clamp",
         in_bytes=4 * BATCH * (dmel.WHISPER_SAMPLES + 400),
         library=lambda: torch.log10(torch.clamp_min(
-            stft_power(audio, 400, 160, 400, True)[..., :-1].transpose(1, 2) @ wb[2], 1e-10)))
+            stft_power(audio, 400, 160, 400, True)[..., :-1].transpose(1, 2) @ wb[2], 1e-10)),
+        body="folded")
 
     # VGGish's bases: one cross-file batch of 256 examples of 96 frames from
     # one signal, VALID framing. torch.stft centres the 400-sample window in
@@ -642,7 +678,7 @@ def k3_path_checks(torch, k3) -> dict:
     check_log_mel(torch, k3, f"K3 ln_offset VGGish bases N={n}", frames, vb, "ln_offset", 0.01,
                   in_bytes=4 * frames.numel(),
                   library=lambda: torch.log(
-                      stft_power(padded, 512, 160, 400, False).T @ vb[2] + 0.01))
+                      stft_power(padded, 512, 160, 400, False).T @ vb[2] + 0.01), body="fft")
 
     # CLAP's (laion, 48 kHz): 16 windows of 10 s, centred reflect framing.
     clap = torch.randn((BATCH, 480000), generator=g, device=dev) * 0.1
@@ -652,11 +688,13 @@ def k3_path_checks(torch, k3) -> dict:
     check_log_mel(torch, k3, f"K3 db_clamp CLAP bases N={frames.shape[0]}", frames, cb,
                   "db_clamp", in_bytes=4 * frames.numel(),
                   library=lambda: 10.0 * torch.log10(torch.clamp_min(
-                      stft_power(clap, 1024, 480, 1024, True).transpose(1, 2) @ cb[2], 1e-10)))
+                      stft_power(clap, 1024, 480, 1024, True).transpose(1, 2) @ cb[2], 1e-10)),
+                  body="fft")
     del audio, sig, frames, padded, clap
 
     # CLAP's frontends as the models call them: one forward's 32 chunks, the
-    # frames read through the strided view of the reflect-padded signal.
+    # frames read through the strided view of the reflect-padded signal; then
+    # two chunks of each in the other two modes.
     clap_entries = {}
     for key, sr, seconds, hop in (("clap-laion", 48000, 10, 480), ("clap-2023", 44100, 7, 320)):
         chunks = torch.randn((CLAP_BATCH, sr * seconds), generator=g, device=dev) * 0.1
@@ -667,20 +705,35 @@ def k3_path_checks(torch, k3) -> dict:
             "(strided view)", frames, cb, "db_clamp",
             in_bytes=4 * CLAP_BATCH * (sr * seconds + 1024),
             library=lambda: 10.0 * torch.log10(torch.clamp_min(
-                stft_power(chunks, 1024, hop, 1024, True).transpose(1, 2) @ cb[2], 1e-10)))
+                stft_power(chunks, 1024, hop, 1024, True).transpose(1, 2) @ cb[2], 1e-10)),
+            body="fft")
+        for mode, offset in (("ln_offset", 0.01), ("log10_clamp", 0.0)):
+            check_log_mel(torch, k3, f"K3 {mode} {key} B=2 (strided view)", frames[:2], cb, mode,
+                          offset, body="fft")
         del chunks, frames
 
-    # The other two modes on Whisper's strided frames, and ragged frame tiles
-    # (three clips) through both templates.
+    # The other two modes on Whisper's strided frames; an odd hop (the FFT
+    # body's one-float loads); ragged frame tiles (three clips) through
+    # every body: folded (Whisper's bases), FFT (VGGish's, n_fft 512, and
+    # CLAP's, 1024) and unfolded (random (1024, 513) bases, no DFT).
     wf = dmel.whisper_frames(torch.randn((2, dmel.WHISPER_SAMPLES), generator=g, device=dev) * 0.1)
     for mode, offset in (("ln_offset", 0.01), ("db_clamp", 0.0)):
-        check_log_mel(torch, k3, f"K3 {mode} Whisper B=2 (strided view)", wf, wb, mode, offset)
-    for n in (1, 65, 130):
-        check_log_mel(torch, k3, f"K3 log10_clamp ragged B=3 N={n} (folded)",
-                      torch.randn((3, n, 400), generator=g, device=dev) * 0.1, wb, "log10_clamp")
-        check_log_mel(torch, k3, f"K3 ln_offset ragged B=3 N={n} (VGGish bases, unfolded)",
-                      torch.randn((3, n, 400), generator=g, device=dev) * 0.1, vb, "ln_offset",
-                      0.01)
+        check_log_mel(torch, k3, f"K3 {mode} Whisper B=2 (strided view)", wf, wb, mode, offset,
+                      body="folded")
+    cb = dmel._device_bases("torchlibrosa", dev, 1024, 48000, 64, 50.0, 14000.0)
+    odd = dmel.torchlibrosa_frames(torch.randn((2, 321 * 64), generator=g, device=dev) * 0.1,
+                                   1024, 321)
+    check_log_mel(torch, k3, "K3 db_clamp CLAP bases, hop 321 (one-float loads)", odd, cb,
+                  "db_clamp", body="fft")
+    rb = (torch.randn((1024, 513), generator=g, device=dev) * 0.05,
+          torch.randn((1024, 513), generator=g, device=dev) * 0.05,
+          torch.rand((513, 64), generator=g, device=dev) * 0.01)
+    for n in (1, 63, 65, 130):
+        for case, bases, w, body in (("Whisper", wb, 400, "folded"), ("VGGish", vb, 400, "fft"),
+                                     ("CLAP", cb, 1024, "fft"), ("random", rb, 1024, "unfolded")):
+            check_log_mel(torch, k3, f"K3 log10_clamp ragged B=3 N={n} ({case} bases)",
+                          torch.randn((3, n, w), generator=g, device=dev) * 0.1, bases,
+                          "log10_clamp", body=body)
     return {"whisper": whisper, **clap_entries}
 
 
@@ -725,6 +778,46 @@ def card_vs_cpu(torch, model_name: str):
     if not diff <= RTOL_CARD_VS_CPU * scale:
         raise AssertionError(f"card vs cpu relative diff {diff / scale} > {RTOL_CARD_VS_CPU}")
     return gpu_model, model.sr
+
+
+def flash_f32_min_t_check(torch, fa, m32) -> None:
+    """w2v2-base f32 forwards of one 10 s clip (T=499) with
+    ``FADTK_TPU_FLASH_F32=1``: under ``FADTK_TPU_FLASH_F32_MIN_T=256`` (the
+    JAX package's f32 probe setting) every layer's attention takes K1 (12
+    launches), without it (default 640) none; the two forwards agree within
+    ``RTOL_CARD_VS_CPU`` of the largest value (printed)."""
+    from fadtk_tpu_torch.models.speech.encoder import speech_encoder_forward
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    audio = torch.randn((1, 160000), generator=g, device="cuda") * 0.1
+    tap = m32.cfg.num_layers
+    outs, launches = {}, {}
+    os.environ["FADTK_TPU_FLASH_F32"] = "1"
+    try:
+        for min_t in ("256", None):
+            if min_t is None:
+                os.environ.pop("FADTK_TPU_FLASH_F32_MIN_T", None)
+            else:
+                os.environ["FADTK_TPU_FLASH_F32_MIN_T"] = min_t
+            fa.flash_attention_packed.launches = 0
+            with torch.inference_mode():
+                outs[min_t], mask = speech_encoder_forward(m32, audio, taps=(tap,))
+            torch.cuda.synchronize()
+            launches[min_t] = fa.flash_attention_packed.launches
+    finally:
+        os.environ.pop("FADTK_TPU_FLASH_F32", None)
+        os.environ.pop("FADTK_TPU_FLASH_F32_MIN_T", None)
+    t = int(mask.sum())
+    diff = (outs["256"] - outs[None]).abs().max().item()
+    scale = outs[None].abs().max().item()
+    print(f"w2v2-base f32 T={t}, FADTK_TPU_FLASH_F32=1: K1 launches {launches['256']} with "
+          f"FADTK_TPU_FLASH_F32_MIN_T=256, {launches[None]} without; K1 vs plain attention "
+          f"max_abs_diff={diff:.3e} ({diff / scale:.3e} of max {scale:.3e}; limit "
+          f"{RTOL_CARD_VS_CPU:g})", flush=True)
+    if t != 499 or launches != {"256": m32.cfg.num_layers, None: 0}:
+        raise AssertionError(f"T={t}: K1 launches {launches}, expected 12 and 0")
+    if not diff <= RTOL_CARD_VS_CPU * scale:
+        raise AssertionError(f"K1 vs plain f32 forward: {diff / scale} > {RTOL_CARD_VS_CPU}")
 
 
 def forward_breakdown(torch, m32, model_name: str, sr: int) -> None:
@@ -1104,7 +1197,7 @@ def cli_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: b
     return {**launches, "forwards": n_forwards, "rate": seconds / embed_s, "score": score}
 
 
-KERNEL_KEYS = ("K1", "K1b", "K4", "K4b", "K3", "K2", "K2g")
+KERNEL_KEYS = ("K1", "K1b", "K4", "K4b", "K3", "K3f", "K2", "K2g")
 
 
 def reset_counts(kernels) -> None:
@@ -1114,7 +1207,7 @@ def reset_counts(kernels) -> None:
     fa.flash_attention.launches = fa.flash_attention.bias_launches = 0
     fa.flash_attention.grouped_launches = 0
     fr.fused_resnet_causal.launches = fr.fused_resnet_causal.bf16_launches = 0
-    k3.fused_log_mel.launches = 0
+    k3.fused_log_mel.launches = k3.fused_log_mel.fft_launches = 0
 
 
 def read_counts(kernels) -> dict:
@@ -1127,6 +1220,7 @@ def read_counts(kernels) -> dict:
             "K4": fr.fused_resnet_causal.launches,
             "K4b": fr.fused_resnet_causal.bf16_launches,
             "K3": k3.fused_log_mel.launches,
+            "K3f": k3.fused_log_mel.fft_launches,
             "K2": fa.flash_attention.launches + fa.flash_attention.bias_launches,
             "K2g": fa.flash_attention.grouped_launches}
 
@@ -1134,8 +1228,9 @@ def read_counts(kernels) -> dict:
 def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
     """Every main path through the CLI, on two generated datasets. Returns
     the launches of each kernel summed over the runs that must launch it (K3
-    also by family: ``K3 whisper``, ``K3 clap-laion``, ``K3 clap-2023``),
-    each run's results by cache key, and the seconds of audio."""
+    also by family: ``K3 whisper``, the folded body; ``K3 clap-laion``,
+    ``K3 clap-2023``, the FFT body, ``K3f``), each run's results by cache
+    key, and the seconds of audio."""
     os.environ.pop("FADTK_TPU_BF16", None)
     os.environ.pop("FADTK_TPU_FLASH_F32", None)
     seconds = make_dataset(work, "baseline", SEED + 1) + make_dataset(work, "eval", SEED + 2)
@@ -1151,9 +1246,9 @@ def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
             ("dac-44kHz", False, None, None), ("dac-44kHz", True, None, None),
             ("whisper-base", False, None, ("K3", 1)), ("whisper-base", True, None, ("K3", 1)),
             ("vggish", False, None, None), ("vggish", True, None, None),
-            ("clap-laion-music", False, None, ("K3", 1)),
-            ("clap-laion-music", True, None, ("K3", 1)), ("clap-2023", False, None, ("K3", 1)),
-            ("clap-2023", True, None, ("K3", 1)),
+            ("clap-laion-music", False, None, ("K3f", 1)),
+            ("clap-laion-music", True, None, ("K3f", 1)), ("clap-2023", False, None, ("K3f", 1)),
+            ("clap-2023", True, None, ("K3f", 1)),
             ("cdpam-acoustic", False, None, None), ("cdpam-acoustic", True, None, None)]
     totals = dict.fromkeys((*KERNEL_KEYS, "K3 whisper", "K3 clap-laion", "K3 clap-2023"), 0)
     cached = {}
@@ -1171,7 +1266,7 @@ def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
         family = next((f for f in ("whisper", "clap-laion", "clap-2023")
                        if model_name.startswith(f)), None)
         if family:
-            totals[f"K3 {family}"] += got["K3"]
+            totals[f"K3 {family}"] += got["K3" if family == "whisper" else "K3f"]
     return totals, cached, seconds
 
 
@@ -1373,8 +1468,8 @@ def pipeline_forwards(model, lengths: list[int]) -> int:
 # that must launch and how often per device forward, or None).
 DP_PIPELINE_RUNS = [
     ("vggish", False, None, None), ("whisper-base", False, None, ("K3", 1)),
-    ("whisper-base", True, None, ("K3", 1)), ("clap-laion-music", False, None, ("K3", 1)),
-    ("clap-2023", False, None, ("K3", 1)), ("dac-44kHz", False, None, None),
+    ("whisper-base", True, None, ("K3", 1)), ("clap-laion-music", False, None, ("K3f", 1)),
+    ("clap-2023", False, None, ("K3f", 1)), ("dac-44kHz", False, None, None),
     ("encodec-emb-48k", False, None, None),
     ("encodec-emb", False, {"FADTK_TPU_FUSED_RESNET": "1"}, ("K4", 4)),
     ("encodec-emb", True, {"FADTK_TPU_FUSED_RESNET": "1"}, ("K4b", 4)),
@@ -1386,7 +1481,8 @@ def dp_pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -
     """``--device-pipeline`` for every non-speech family, through the chunked
     and whole-clip paths of ``parallel/dp.py``, against the cached runs of
     ``cli_runs`` (``pipeline_run``'s checks). K3 must launch once per device
-    forward of whisper and CLAP, K4 (f32) or K4b (bf16) four times per
+    forward of whisper (the folded body) and CLAP (the FFT body, ``K3f``),
+    K4 (f32) or K4b (bf16) four times per
     forward of encodec-emb with the knob on, as predicted from the clip
     lengths (``pipeline_forwards``), and nothing else. Returns the launches
     summed over the runs (K3 also by family)."""
@@ -1416,7 +1512,7 @@ def dp_pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -
         family = next((f for f in ("whisper", "clap-laion", "clap-2023")
                        if model_name.startswith(f)), None)
         if family:
-            totals[f"K3 {family}"] += got["K3"]
+            totals[f"K3 {family}"] += got["K3" if family == "whisper" else "K3f"]
     return totals
 
 
@@ -1739,7 +1835,7 @@ def convert_checks(torch, kernels, work: Path) -> None:
     with seeded values, converted with ``convert_cli --checkpoint``, loaded
     through ``FADTK_TPU_CHECKPOINTS`` by the models' own ``load_model`` and
     run at full width on the card and the CPU (``model_card_vs_cpu``); the
-    CLAP forward launches K3."""
+    CLAP forward launches K3's FFT body."""
     import json as _json
 
     import numpy as np
@@ -1783,15 +1879,15 @@ def convert_checks(torch, kernels, work: Path) -> None:
                   f"in {time.perf_counter() - t0:.1f} s", flush=True)
             reset_counts(kernels)
             model = model_card_vs_cpu(torch, name, rng.standard_normal(seconds * sr) * 0.1)
-            k3 = read_counts(kernels)["K3"]
+            k3 = read_counts(kernels)["K3f"]
             loaded = (model.module.conv_out.bias if name == "dac-44kHz"
                       else model.module.audio_projection.linear2.bias)
             if not torch.equal(loaded.cpu(), sd[check]):
                 raise AssertionError(f"{name}: the model did not load the converted weights")
             print(f"[convert] {name}: the converted .npz loaded on the card and the CPU; "
-                  f"K3 launches {k3}", flush=True)
+                  f"K3's FFT body launches {k3}", flush=True)
             if (k3 > 0) != name.startswith("clap"):
-                raise AssertionError(f"{name}: K3 launched {k3} times")
+                raise AssertionError(f"{name}: K3's FFT body launched {k3} times")
             del model
     finally:
         sys.argv = argv
@@ -2201,6 +2297,10 @@ def main() -> int:
         for model_name in ("w2v2-base", "wavlm-base-plus", "MERT-v1-95M"):
             phase(f"{model_name} f32: card vs cpu")
             m32, sr = card_vs_cpu(torch, model_name)
+            if model_name == "w2v2-base":
+                phase("w2v2-base f32 at T=499: FADTK_TPU_FLASH_F32=1 with and without "
+                      "FADTK_TPU_FLASH_F32_MIN_T=256")
+                flash_f32_min_t_check(torch, fa, m32)
             phase(f"{model_name} forward: time and device time by kernel")
             forward_breakdown(torch, m32, model_name, sr)
             del m32
@@ -2359,15 +2459,15 @@ def main() -> int:
              "route": "cuda", "source": "fadtk_tpu_torch/csrc/fused_resnet_causal.cu",
              "replaces": "fadtk_tpu/ops/fused_resnet.py:125",
              **paths("K4b"), **k4["bfloat16"]},
-            {"name": "fused_log_mel (log10_clamp, Whisper B=16)", "route": "cuda",
-             "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
+            {"name": "fused_log_mel (log10_clamp, Whisper B=16; folded FMA body)",
+             "route": "cuda", "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
              "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",
              **paths("K3 whisper"), **k3_entries["whisper"]},
-            {"name": "fused_log_mel (db_clamp, CLAP-LAION 48 kHz B=32, strided view)",
+            {"name": "fused_log_mel (db_clamp, CLAP-LAION 48 kHz B=32, strided view; FFT body)",
              "route": "cuda", "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
              "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",
              **paths("K3 clap-laion"), **k3_entries["clap-laion"]},
-            {"name": "fused_log_mel (db_clamp, MS-CLAP 44.1 kHz B=32, strided view)",
+            {"name": "fused_log_mel (db_clamp, MS-CLAP 44.1 kHz B=32, strided view; FFT body)",
              "route": "cuda", "source": "fadtk_tpu_torch/csrc/fused_log_mel.cu",
              "replaces": "fadtk_tpu/dsp/pallas_mel.py:86",
              **paths("K3 clap-2023"), **k3_entries["clap-2023"]},

@@ -245,7 +245,8 @@ def _attention_core(q, k, v, bias):
     return out.transpose(1, 2).reshape(b, t, h * d)
 
 
-# f32 attention takes the kernel only on opt-in, and only from this length.
+# f32 attention takes the kernel only on opt-in, and only from this length
+# (``FADTK_TPU_FLASH_F32_MIN_T`` overrides it).
 _FLASH_F32_MIN_T = 640
 
 
@@ -255,7 +256,8 @@ def use_flash_attention(dtype, frame_valid, t: int | None, device: torch.device)
 
     - bf16: always the flash kernel;
     - f32: the plain ``_attention_core`` (the parity path), unless
-      ``FADTK_TPU_FLASH_F32=1`` and T >= 640;
+      ``FADTK_TPU_FLASH_F32=1`` and T >= ``FADTK_TPU_FLASH_F32_MIN_T``
+      (stripped; 640 when unset or not all digits);
     - nothing when the kernel is disabled — by default on CPU tensors
       (``ops.flash_attention.flash_attention_enabled``).
     """
@@ -266,7 +268,9 @@ def use_flash_attention(dtype, frame_valid, t: int | None, device: torch.device)
     if dtype == torch.bfloat16:
         return True
     if dtype == torch.float32 and t is not None:
-        return os.environ.get("FADTK_TPU_FLASH_F32", "").strip() == "1" and t >= _FLASH_F32_MIN_T
+        if os.environ.get("FADTK_TPU_FLASH_F32", "").strip() == "1":
+            raw = os.environ.get("FADTK_TPU_FLASH_F32_MIN_T", "").strip()
+            return t >= (int(raw) if raw.isdigit() else _FLASH_F32_MIN_T)
     return False
 
 

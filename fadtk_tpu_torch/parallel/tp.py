@@ -19,8 +19,9 @@ JAX package's step). Attention routing follows the JAX package's
 - WavLM takes the head-major kernel K2 (``flash_attention``) on the
   head-split views of the projections, with the position bias and gate in
   float32 — the only production caller of K2;
-- float32 keeps the plain ``_attention_core`` unless ``FADTK_TPU_FLASH_F32``
-  says otherwise, exactly as ``encoder.use_flash_attention`` decides.
+- float32 keeps the plain ``_attention_core`` unless ``FADTK_TPU_FLASH_F32=1``
+  and T reaches ``FADTK_TPU_FLASH_F32_MIN_T`` (default 640), exactly as
+  ``encoder.use_flash_attention`` decides.
 """
 
 from __future__ import annotations

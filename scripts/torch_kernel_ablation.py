@@ -1,4 +1,4 @@
-"""Where a kernel's time goes: K1/K1b, K3 and K4 with one phase removed at a time.
+"""Where a kernel's time goes: K1/K1b, K3 (FMA and FFT bodies) and K4 with one phase removed at a time.
 
     python3 scripts/torch_kernel_ablation.py
 
@@ -9,8 +9,10 @@ phase cut out of the source text (the outputs of a cut variant are wrong;
 only its time means something), and prints each variant's time (CUDA events,
 mean of 20 back-to-back launches, two rounds in turn) at the main path's
 shapes: the bf16 flash attention at B=16 T=499 H=12 with chip_smoke.py's
-ragged n_valid, without (K1) and with (K1b) WavLM's bias; K3 at Whisper's
-B=16 (``log10_clamp``, strided view); K4's float32 (3xTF32) and bf16 forms at
+ragged n_valid, without (K1) and with (K1b) WavLM's bias; K3's folded FMA
+body at Whisper's B=16 (``log10_clamp``, strided view) and its FFT body at
+CLAP-LAION's B=32 x 1001 frames (``db_clamp``, strided view, hop 480); K4's
+float32 (3xTF32) and bf16 forms at
 the four encodec-emb call sites of a B=16 x 10 s forward. The full kernel
 minus a variant is what the removed phase costs, as far as the phases do not
 overlap.
@@ -39,6 +41,19 @@ K3_VARIANTS = {
     "no mel product": [("        if (lo >= hi) continue;", "        continue;")],
     "no next-slice staging and fold": [(K3_NEXT, ""),
                                        ("      if (next) fold_store((s + 1) & 1);\n", "")],
+}
+K3F_MEL = ("      for (int k = lo; k < hi; ++k) acc = fmaf(pw[(k - klo) * FTP + fl], "
+           "__ldg(mp + k), acc);")
+K3F_VARIANTS = {
+    "full": [],
+    "no mel product": [(K3F_MEL, K3F_MEL.replace("k < hi", "k < lo"))],
+    "no split and power": [("    for (int t = lane; t < nk; t += 32) {",
+                            "    for (int t = lane; t < 0; t += 32) {")],
+    "no Stockham stages 2 and 3": [("    stage<P, 8, 8>(zr, zi, twr, twi, lane);\n"
+                                    "    stage<P, R3<P>, 64>(zr, zi, twr + 56, twi + 56, lane);\n",
+                                    "")],
+    "no frame loads": [("          xv = s < W ? __ldg(reinterpret_cast<const float2*>(x + s)) : "
+                        "make_float2(0.f, 0.f);", "          xv = make_float2(s, 1.f);")],
 }
 ATTN_PV = ("        mma_bf16(o[j], pa[kk], vb[0], vb[1]);\n"
            "        mma_bf16(o[j + 1], pa[kk], vb[2], vb[3]);\n")
@@ -161,6 +176,31 @@ def k3_calls(libs) -> dict:
     return calls
 
 
+def k3_fft_calls(libs) -> dict:
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = dmel.torchlibrosa_frames(torch.randn((32, 480000), generator=g, device=dev) * 0.1,
+                                      1024, 480)
+    bases = dmel._device_bases("torchlibrosa", dev, 1024, 48000, 64, 50.0, 14000.0)
+    layout = k3.kernel_layout(*bases)
+    out = torch.empty((32, 1001, 64), device=dev)
+    calls = {}
+    for name, lib in libs.items():
+        fn = lib.fadtk_fused_log_mel_fft
+        fn.restype = ctypes.c_int
+        fn.argtypes = k3._library().fadtk_fused_log_mel_fft.argtypes
+
+        def call(fn=fn):
+            rc = fn(frames.data_ptr(), frames.stride(0), frames.stride(1), 32, 1001, 1024, 1024,
+                    layout.window.data_ptr(), layout.twiddle.data_ptr(), *layout.bins,
+                    layout.mel_packed.data_ptr(), layout.band.data_ptr(),
+                    layout.packed_at.data_ptr(), 64, out.data_ptr(), 2, 0.0,
+                    torch.cuda.current_stream().cuda_stream)
+            assert rc == 0, rc
+        calls[name] = call
+    return calls
+
+
 def attn_calls(libs) -> dict:
     dev = torch.device("cuda")
     b, t, h = 16, 499, 12
@@ -219,6 +259,8 @@ def main() -> None:
                                          ATTN_VARIANTS)),
              **{f"K3 {k}": v for k, v in k3_calls(build_variants(
                  build.CSRC / "fused_log_mel.cu", K3_VARIANTS)).items()},
+             **{f"K3 FFT {k}": v for k, v in k3_fft_calls(build_variants(
+                 build.CSRC / "fused_log_mel.cu", K3F_VARIANTS, "fft")).items()},
              **{f"K4 f32 {k}": v for k, v in k4_calls(build_variants(
                  resnet, K4F32_VARIANTS, "f32"), torch.float32).items()},
              **{f"K4 bf16 {k}": v for k, v in k4_calls(build_variants(

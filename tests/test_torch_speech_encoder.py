@@ -154,5 +154,32 @@ def test_f32_flash_opt_in(monkeypatch):
     monkeypatch.setenv("FADTK_TPU_FLASH_F32", "1")
     assert use_flash_attention(torch.float32, fv, 749, cuda)
     assert not use_flash_attention(torch.float32, fv, 499, cuda)  # below T=640
+    monkeypatch.setenv("FADTK_TPU_FLASH_F32_MIN_T", " 256 ")  # the f32 probe's setting
+    assert use_flash_attention(torch.float32, fv, 499, cuda)
+    assert not use_flash_attention(torch.float32, fv, 255, cuda)
+    monkeypatch.setenv("FADTK_TPU_FLASH_F32_MIN_T", "2.5e2")  # not digits: back to 640
+    assert not use_flash_attention(torch.float32, fv, 499, cuda)
+    assert use_flash_attention(torch.float32, fv, 640, cuda)
     monkeypatch.setenv("FADTK_TPU_FLASH_F32", "0")
     assert not use_flash_attention(torch.float32, fv, 749, cuda)
+
+
+@pytest.mark.parametrize("t", [255, 256, 499, 640, 749])
+@pytest.mark.parametrize("min_t", [None, "256", "1000", "x"])
+def test_f32_flash_routing_matches_jax(monkeypatch, min_t, t):
+    """With ``FADTK_TPU_FLASH_F32=1`` the port routes f32 attention exactly as
+    the JAX package does for every ``FADTK_TPU_FLASH_F32_MIN_T``; JAX's
+    kernel is forced on here (``FADTK_TPU_FLASH_ATTENTION=1``, the CPU
+    backend has it off), the port's is on for a CUDA device."""
+    from fadtk_tpu.models.speech.encoder import use_flash_attention as jax_routing
+
+    monkeypatch.setenv("FADTK_TPU_FLASH_F32", "1")
+    monkeypatch.setenv("FADTK_TPU_FLASH_ATTENTION", "1")
+    if min_t is None:
+        monkeypatch.delenv("FADTK_TPU_FLASH_F32_MIN_T", raising=False)
+    else:
+        monkeypatch.setenv("FADTK_TPU_FLASH_F32_MIN_T", min_t)
+    want = jax_routing(jnp.float32, jnp.ones(2, jnp.int32), t)
+    fv = torch.ones(2, dtype=torch.int32)
+    assert use_flash_attention(torch.float32, fv, t, torch.device("cuda")) is want
+    assert want is (t >= (int(min_t) if min_t and min_t.isdigit() else 640))

@@ -288,6 +288,42 @@ def test_bf16_wavlm_step_reaches_k2_twin(results, monkeypatch):
     assert int(n) == int(mask.float().sum()) and torch.isfinite(cov).all()
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+def test_f32_step_reads_flash_min_t(results, monkeypatch, offset):
+    """f32 with ``FADTK_TPU_FLASH_F32=1``: the tp step's standard attention
+    takes K1 (its twin on the CPU, forced on) once per layer where T reaches
+    ``FADTK_TPU_FLASH_F32_MIN_T`` and the plain path one frame below it, as
+    the JAX package's ``use_flash_attention`` decides."""
+    import jax.numpy as jnp
+
+    from fadtk_tpu.models.speech.encoder import use_flash_attention as jax_routing
+    from fadtk_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setenv("FADTK_TPU_FLASH_ATTENTION", "1")
+    monkeypatch.setenv("FADTK_TPU_FLASH_F32", "1")
+    calls = []
+    real = fa.flash_attention_packed
+
+    def spy(q, *args, **kw):
+        calls.append(q.shape[1])
+        return real(q, *args, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_packed", spy)
+    model = _port_encoder(results["work"] / "standard.npz", _cfg_kw("standard"))
+    audio, num_valid = _audio()
+    t = T
+    for kernel, stride in zip(model.cfg.conv_kernel, model.cfg.conv_stride):
+        t = (t - kernel) // stride + 1  # the feature extractor's frames
+    monkeypatch.setenv("FADTK_TPU_FLASH_F32_MIN_T", str(t + offset))
+    want = jax_routing(jnp.float32, jnp.ones(B, jnp.int32), t)
+    with torch.no_grad():
+        got, _ = _tp_forward(model.cfg, model, torch.from_numpy(audio),
+                             torch.from_numpy(num_valid), make_mesh(), model.cfg.num_layers)
+    assert want is (offset == 0)
+    assert calls == ([t] * model.cfg.num_layers if want else [])
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+
+
 def test_step_memoised_per_cfg_mesh_layer(results):
     model = _port_encoder(results["work"] / "standard.npz", _cfg_kw("standard"))
     mesh = make_mesh()
