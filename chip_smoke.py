@@ -19,8 +19,8 @@ Phases:
    calls), and the roofline bound of the run's work (float32 operations at
    the 3xTF32 rate, the CUDA-core figure printed beside it):
    - K1, flash attention without bias: the w2v2/HuBERT 16 kHz bucket
-     B=16/T=499/H=12 in bf16 and f32, MERT's 24 kHz bucket T=749 in bf16,
-     ragged n_valid;
+     B=16/T=499/H=12 in bf16 and f32, MERT's 24 kHz bucket T=749 in bf16
+     and f32, ragged n_valid (float32 runs as 3xTF32 on the tensor cores);
    - K1b, the same kernel with WavLM's factorized gated bias: B=16/T=499 in
      bf16 and f32 at H=12 (wavlm-base-plus) and bf16 at H=16 (wavlm-large);
    - K4, the fused SEANet residual block: the four call sites of one
@@ -62,9 +62,12 @@ Phases:
    f32 on the CPU, same weights, one 10 s clip; for w2v2-base then one f32
    forward of that clip (T=499) with ``FADTK_TPU_FLASH_F32=1``, which must
    launch K1 in all 12 layers under ``FADTK_TPU_FLASH_F32_MIN_T=256`` and
-   in none without it (the JAX package's routing); then batch-16 forward
-   times for each (f32, bf16, bf16 with plain attention) and the device time
-   by kernel from torch.profiler;
+   in none without it (the JAX package's routing); for MERT-v1-95M a
+   batch-16 f32 forward of the 10 s bucket (T=749) with and without
+   ``FADTK_TPU_FLASH_F32=1``, which must launch K1 12 times and 0 times and
+   agree within ``RTOL_CARD_VS_CPU`` of the largest value, both timed; then
+   batch-16 forward times for each (f32, bf16, bf16 with plain attention)
+   and the device time by kernel from torch.profiler;
 5. the codec families through their model classes, f32 on the card against
    f32 on the CPU, same weights: encodec-emb on one 10 s clip with the fused
    block's knob (FADTK_TPU_FUSED_RESNET) on and off, encodec-emb-48k on a
@@ -165,7 +168,9 @@ Phases:
    ``fadtk_tpu_torch.graft_entry``: ``entry()`` and
    ``dryrun_multichip(1)``'s seven paths on the card;
 11. one JSON line of kernel results (launches also by path: K1 over the
-   cached CLI runs and the device-transport runs; K3 and K4 over the cached
+   cached CLI runs and the device-transport runs, its float32 form over the
+   cached f32 CLI runs (none: the knob is off) and the knob's forwards of
+   phase 4; K3 and K4 over the cached
    CLI runs, the non-speech ``--device-pipeline`` runs and, for K3's
    Whisper form, the device-transport runs), then
    ``{"ok": true, "device": ...}``.
@@ -451,19 +456,20 @@ def check_k2(torch, fa, dtype, heads: int, form: str, strided: bool = False) -> 
             "library_ms": library_ms}
 
 
-def k2_checks(torch, fa) -> tuple[dict, dict]:
+def k2_checks(torch, fa) -> tuple[dict, dict, dict]:
     """K2 in every form at the main path's shapes; returns the kernels-line
-    entries of the bf16 bias case at H=12 and of the grouped case."""
+    entries of the bf16 bias case at H=12, of the grouped case and of the
+    float32 bias case."""
     bias = check_k2(torch, fa, torch.bfloat16, 12, "bias")
     check_k2(torch, fa, torch.bfloat16, 16, "bias")
     check_k2(torch, fa, torch.bfloat16, 6, "bias")
-    check_k2(torch, fa, torch.float32, 12, "bias")
+    bias_f32 = check_k2(torch, fa, torch.float32, 12, "bias")
     check_k2(torch, fa, torch.bfloat16, 12, "plain")
     grouped = check_k2(torch, fa, torch.bfloat16, 12, "grouped")
     strided = check_k2(torch, fa, torch.bfloat16, 12, "bias", strided=True)
     print(f"K2 bf16 bias H=12, contiguous / strided views: {bias['ms']:.4f} / "
           f"{strided['ms']:.4f} ms", flush=True)
-    return bias, grouped
+    return bias, grouped, bias_f32
 
 
 def resnet_bound(b: int, c: int, t: int, dtype: str) -> dict:
@@ -780,12 +786,13 @@ def card_vs_cpu(torch, model_name: str):
     return gpu_model, model.sr
 
 
-def flash_f32_min_t_check(torch, fa, m32) -> None:
+def flash_f32_min_t_check(torch, fa, m32) -> int:
     """w2v2-base f32 forwards of one 10 s clip (T=499) with
     ``FADTK_TPU_FLASH_F32=1``: under ``FADTK_TPU_FLASH_F32_MIN_T=256`` (the
     JAX package's f32 probe setting) every layer's attention takes K1 (12
     launches), without it (default 640) none; the two forwards agree within
-    ``RTOL_CARD_VS_CPU`` of the largest value (printed)."""
+    ``RTOL_CARD_VS_CPU`` of the largest value (printed). Returns the K1
+    launches under the length knob."""
     from fadtk_tpu_torch.models.speech.encoder import speech_encoder_forward
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -818,6 +825,61 @@ def flash_f32_min_t_check(torch, fa, m32) -> None:
         raise AssertionError(f"T={t}: K1 launches {launches}, expected 12 and 0")
     if not diff <= RTOL_CARD_VS_CPU * scale:
         raise AssertionError(f"K1 vs plain f32 forward: {diff / scale} > {RTOL_CARD_VS_CPU}")
+    return launches["256"]
+
+
+def bucket_batch(torch, sr: int):
+    """A batch of the 10 s bucket at ``sr``: 8 full clips and 8 ragged ones
+    (2-9 s), random from the seed; returns the audio, the valid sample counts
+    and the seconds of valid audio."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    n = 10 * sr
+    audio = torch.randn((BATCH, n), generator=g, device="cuda") * 0.1
+    nv = torch.tensor([n] * 8 + [n * (i + 2) // 10 for i in range(8)], dtype=torch.int32,
+                      device="cuda")
+    return audio, nv, nv.sum().item() / sr
+
+
+def mert_flash_f32_check(torch, fa, m32, sr: int) -> dict:
+    """MERT-v1-95M f32 forwards of a batch of the 10 s bucket (T=749) with
+    and without ``FADTK_TPU_FLASH_F32=1``: the knob sends every layer's
+    attention to K1's float32 body (12 launches a forward), its absence to
+    the plain attention (0); the two agree within ``RTOL_CARD_VS_CPU`` of the
+    largest value on valid frames. Both forwards are timed (CUDA events).
+    Returns the launches and times."""
+    from fadtk_tpu_torch.models.speech.encoder import speech_encoder_forward
+
+    audio, nv, audio_s = bucket_batch(torch, sr)
+    tap = m32.cfg.num_layers
+    outs, launches, ms = {}, {}, {}
+
+    def forward():
+        with torch.inference_mode():
+            return speech_encoder_forward(m32, audio, nv, taps=(tap,))
+
+    try:
+        for knob in ("1", ""):
+            os.environ["FADTK_TPU_FLASH_F32"] = knob
+            fa.flash_attention_packed.launches = 0
+            outs[knob], mask = forward()
+            torch.cuda.synchronize()
+            launches[knob] = fa.flash_attention_packed.launches
+            ms[knob] = cuda_ms(torch, forward, runs=10)
+    finally:
+        os.environ.pop("FADTK_TPU_FLASH_F32", None)
+    t = mask.shape[1]
+    valid = mask[..., None].bool()
+    diff = ((outs["1"] - outs[""]).abs() * valid).max().item()
+    scale = (outs[""].abs() * valid).max().item()
+    print(f"MERT-v1-95M f32 forward, B={BATCH} T={t} ({audio_s:.1f} s of valid audio): "
+          f"FADTK_TPU_FLASH_F32=1 {ms['1']:.3f} ms, K1 launches {launches['1']}; plain "
+          f"attention {ms['']:.3f} ms, K1 launches {launches['']}; max_abs_diff={diff:.3e} "
+          f"({diff / scale:.3e} of max {scale:.3e}; limit {RTOL_CARD_VS_CPU:g})", flush=True)
+    if t != 749 or launches != {"1": m32.cfg.num_layers, "": 0}:
+        raise AssertionError(f"T={t}: K1 launches {launches}, expected 12 and 0")
+    if not diff <= RTOL_CARD_VS_CPU * scale:
+        raise AssertionError(f"MERT f32 with K1 vs plain: {diff / scale} > {RTOL_CARD_VS_CPU}")
+    return {"launches": launches["1"], "ms_knob_on": ms["1"], "ms_knob_off": ms[""]}
 
 
 def forward_breakdown(torch, m32, model_name: str, sr: int) -> None:
@@ -830,12 +892,7 @@ def forward_breakdown(torch, m32, model_name: str, sr: int) -> None:
     from fadtk_tpu_torch.models.speech.encoder import speech_encoder_forward
 
     m16 = copy.deepcopy(m32).to(torch.bfloat16)
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    n = 10 * sr
-    audio = torch.randn((BATCH, n), generator=g, device="cuda") * 0.1
-    nv = torch.tensor([n] * 8 + [n * (i + 2) // 10 for i in range(8)], dtype=torch.int32,
-                      device="cuda")
-    audio_s = nv.sum().item() / sr
+    audio, nv, audio_s = bucket_batch(torch, sr)
     tap = m32.cfg.num_layers
 
     def forward(model):
@@ -1428,6 +1485,8 @@ def pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -> d
             totals[k] += got[k]
         if (model_name, bf16, argv) == ("w2v2-base", False, ()):
             totals["score w2v2-base"] = got["score"]
+        if (model_name, bf16) == ("wavlm-base-plus", False):
+            totals["K2 f32"] = got["K2"]
     return totals
 
 
@@ -2284,12 +2343,13 @@ def main() -> int:
 
         phase("kernels vs plain twins")
         k1 = check_kernel(torch, fa, torch.bfloat16, 499, 12, bias=False)
-        check_kernel(torch, fa, torch.float32, 499, 12, bias=False)
+        k1_f32 = check_kernel(torch, fa, torch.float32, 499, 12, bias=False)
         check_kernel(torch, fa, torch.bfloat16, 749, 12, bias=False)
+        k1_f32_749 = check_kernel(torch, fa, torch.float32, 749, 12, bias=False)
         k1b = check_kernel(torch, fa, torch.bfloat16, 499, 12, bias=True)
-        check_kernel(torch, fa, torch.float32, 499, 12, bias=True)
+        k1b_f32 = check_kernel(torch, fa, torch.float32, 499, 12, bias=True)
         check_kernel(torch, fa, torch.bfloat16, 499, 16, bias=True)
-        k2, k2g = k2_checks(torch, fa)
+        k2, k2g, k2_f32 = k2_checks(torch, fa)
         k4 = k4_path_checks(torch, fr)
         k3_entries = k3_path_checks(torch, k3)
         torch.cuda.empty_cache()
@@ -2300,7 +2360,11 @@ def main() -> int:
             if model_name == "w2v2-base":
                 phase("w2v2-base f32 at T=499: FADTK_TPU_FLASH_F32=1 with and without "
                       "FADTK_TPU_FLASH_F32_MIN_T=256")
-                flash_f32_min_t_check(torch, fa, m32)
+                min_t_launches = flash_f32_min_t_check(torch, fa, m32)
+            if model_name == "MERT-v1-95M":
+                phase("MERT-v1-95M f32 forward, B=16 at T=749: FADTK_TPU_FLASH_F32=1 and plain "
+                      "attention")
+                mert_f32 = mert_flash_f32_check(torch, fa, m32, sr)
             phase(f"{model_name} forward: time and device time by kernel")
             forward_breakdown(torch, m32, model_name, sr)
             del m32
@@ -2451,6 +2515,24 @@ def main() -> int:
              "source": source,
              "replaces": "fadtk_tpu/ops/flash_attention.py:703 (bias term :559-562)",
              "launches": launches["K1b"], **k1b},
+            {"name": "flash_attention_packed (f32, 3xTF32; B=16 T=499, T=749 beside)",
+             "route": "cuda", "source": source, "replaces": "fadtk_tpu/ops/flash_attention.py:703",
+             "launches": mert_f32["launches"] + min_t_launches,
+             "launches_by_path": {
+                 "cached f32 CLI runs (knob off)": cached["w2v2-base"]["K1"],
+                 "MERT-v1-95M f32 B=16 T=749, FADTK_TPU_FLASH_F32=1": mert_f32["launches"],
+                 "w2v2-base f32 T=499, FADTK_TPU_FLASH_F32=1 FADTK_TPU_FLASH_F32_MIN_T=256":
+                 min_t_launches},
+             **k1_f32, "t749": k1_f32_749,
+             "mert_f32_forward_ms": {"knob_on": mert_f32["ms_knob_on"],
+                                     "knob_off": mert_f32["ms_knob_off"]}},
+            {"name": "flash_attention_packed (f32, 3xTF32, factorized bias)", "route": "cuda",
+             "source": source,
+             "replaces": "fadtk_tpu/ops/flash_attention.py:703 (bias term :559-562)",
+             "launches": cached["wavlm-base-plus"]["K1b"],
+             "launches_by_path": {"cached f32 CLI runs (no caller: WavLM's f32 attention "
+                                  "stays dense)": cached["wavlm-base-plus"]["K1b"]},
+             **k1b_f32},
             {"name": "fused_resnet_causal (f32, one forward's four launches)", "route": "cuda",
              "source": "fadtk_tpu_torch/csrc/fused_resnet_causal.cu",
              "replaces": "fadtk_tpu/ops/fused_resnet.py:125",
@@ -2477,6 +2559,13 @@ def main() -> int:
             {"name": "flash_attention (head-major, grouped grid)", "route": "cuda",
              "source": source, "replaces": "fadtk_tpu/ops/flash_attention.py:422",
              "launches": pipeline["K2g"], **k2g},
+            {"name": "flash_attention (head-major, f32, 3xTF32, factorized bias)",
+             "route": "cuda", "source": source,
+             "replaces": "fadtk_tpu/ops/flash_attention.py:490",
+             "launches": pipeline["K2 f32"],
+             "launches_by_path": {"device pipeline f32 runs (no caller: WavLM's f32 attention "
+                                  "stays dense)": pipeline["K2 f32"]},
+             **k2_f32},
         ]}))
     except Exception:
         traceback.print_exc()

@@ -44,46 +44,97 @@
 // the output comes from torch.empty, and a NaN left in a padded row would
 // reach the next layer's V at a masked key, where 0 * NaN poisons valid rows.
 //
-// What bounds it. At the w2v2/WavLM 10 s bucket (B=16, T=499, H=12, D=64,
-// bf16) with every key valid, one call does ~12 GFLOP of logits and p.v
-// products against ~49 MB of q/k/v/out traffic (K1's count; the head-major
-// form moves the same bytes), ~250 FLOP per byte, under the ~295 at which
-// the tensor cores rather than device memory would bind: the roofline is the
-// bytes, ~15 us at 3.35 TB/s. What holds the kernel above it is on-chip:
-// tensor-core issue, the softmax's exponentials, and the latency of each
-// tile's loads. The bf16 design keeps everything after the loads in
-// registers and overlaps the loads with the products:
+// What bounds it. At the w2v2/WavLM 10 s bucket (B=16, T=499, H=12, D=64)
+// with every key valid, one call does ~12 GFLOP of logits and p.v products.
+// In bf16 it moves ~49 MB of q/k/v/out (K1's count; the head-major form
+// moves the same bytes), ~250 FLOP per byte, under the ~295 at which the
+// tensor cores rather than device memory would bind: the roofline is the
+// bytes, ~15 us at 3.35 TB/s. In float32 the bytes double (~29 us) and the
+// products bind: ~74 us as 3xTF32 on the tensor cores (three TF32 products
+// at 495 TFLOP/s per float32 product), ~180 us on the CUDA cores (67
+// TFLOP/s). What holds either form above its bound is on-chip: tensor-core
+// issue, the softmax's exponentials, the float32 operands' split, and the
+// latency of each tile's loads. Both bodies keep everything after the loads
+// in registers and overlap the loads with the products:
 //
 // - one CTA of 4 warps per (64-row query tile, head, batch element), or, in
 //   the grouped form, per (query tile, group of G heads, batch element),
 //   looping over its G heads and reusing the same shared memory for each;
-// - Q is copied once per head, and K and V tiles of 64 keys go through a
-//   ring of two shared-memory stages filled by cp.async (16 bytes a thread,
-//   zero-filled past T), so tile j + 1 lands while tile j is multiplied; the
-//   loop stops at ceil(n_valid / 64) tiles;
-// - bf16: both products are mma.sync.m16n8k16 (bf16 in, f32 accumulate),
-//   operands from shared memory by ldmatrix (V through its transpose); each
-//   warp owns 16 query rows, so the online softmax needs only shuffles
+// - K and V tiles of 64 keys go through a ring of two shared-memory stages
+//   filled by cp.async (16 bytes a thread, zero-filled past T), so tile j + 1
+//   lands while tile j is multiplied; the loop stops at ceil(n_valid / 64)
+//   tiles;
+// - each warp owns 16 query rows, so the online softmax needs only shuffles
 //   within a quad of lanes; the logits S, the probabilities P (the A operand
-//   of the p.v product is the S accumulator, exponentiated and packed to
-//   bf16 pairs) and the output accumulator never leave registers, and the
-//   output is written from them;
-// - f32: both products run as FMA on CUDA cores, with K, V and P staged in
-//   shared memory (no launch on the main path);
-// - the softmax state (m, l) and the output accumulator stay in registers.
+//   of the p.v product is the S accumulator, exponentiated in registers), the
+//   softmax state (m, l) and the output accumulator never leave registers,
+//   and the output is written from them;
+// - bf16: both products are mma.sync.m16n8k16 (bf16 in, f32 accumulate),
+//   operands from shared memory by ldmatrix (V through its transpose), Q
+//   copied to shared memory once per head; P is packed to bf16 pairs;
+// - f32: both products are 3xTF32 (tf32.cuh) on mma.sync.m16n8k8: every
+//   operand is split into TF32 hi and lo parts in registers where it is read,
+//   and each product is taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, float32
+//   accumulation (~22 significand bits; one TF32 product would put errors of
+//   ~1e-3 on the logits). ldmatrix moves 16-bit elements, so the fragments
+//   are plain shared-memory loads, in orders chosen so that each lane's loads
+//   are wide and free of bank conflicts. Lane (g, c) = (lane / 4, lane % 4):
+//   - Q . K^T: in k8 step kk, slot c is dim 8kk + 2c and slot c + 4 is dim
+//     8kk + 2c + 1, for Q's A fragment and K's B fragment alike, so a lane
+//     reads two neighbouring dims of a row as one float2. Q's fragments are
+//     read from device memory once per (query tile, head), split, and kept in
+//     shared memory in fragment order (each lane its own two float4 a k8
+//     step: 8 KB a warp); held in registers they would take 64 and push the
+//     body into spills. K's are one float2 per (k8 step, n8 tile) at a row
+//     stride of 72 floats, where a half-warp's 16 float2 hit 32 banks.
+//   - P to the A operand without shared memory: the m16n8 accumulator gives
+//     lane (g, c) keys 2c and 2c + 1 of each 8-key chunk (S's n8 tile kk),
+//     while a tf32 A fragment wants slots c and c + 4. The keys of each chunk
+//     are renumbered: A's slot c is key 8kk + 2c and slot c + 4 is key 8kk +
+//     2c + 1, so A = (s[kk][0], s[kk][2], s[kk][1], s[kk][3]) split into hi
+//     and lo, and V's B fragment is read at the same two key rows.
+//   - V and O: n8 tile j's slot n is dim 4n + j (j < 4) or 32 + 4n + j - 4
+//     (j >= 4). V's B fragment of lane (g, c) is then dims 4g .. 4g + 3 and
+//     32 + 4g .. 32 + 4g + 3 of its two key rows, four float4 per k8 step for
+//     all eight n8 tiles, at a row stride of 68 floats, where a quarter-warp's
+//     8 float4 hit 32 banks; and the accumulator gives lane (g, c) dims 8c ..
+//     8c + 7 and 32 + 8c .. 32 + 8c + 7 of its two rows, written out 16 bytes
+//     at a time.
+//   - Accumulation: the tensor cores' float32 sums round toward zero, and a
+//     chain of ~190 products into O over T=499 keys drifted by 1.3e-5 of the
+//     twin with WavLM's bias. Each key tile's p.v product is therefore a
+//     chain of its own (24 products, from zero), and O = alpha O + P V is
+//     taken in float32.
+//   - The split is two integer instructions a part (tf32.cuh), not
+//     cvt.rna.tf32.f32, which lowers to four.
+//   Shared memory: the two (K, V) stages and the Q fragments, 104,448 bytes,
+//   two CTAs an SM; ptxas puts the body at ~230 registers, no spill, so
+//   registers allow two CTAs as well (the report is printed by chip_smoke.py).
+//   What remains is mostly the issue of mma.sync's tf32 products: one TF32
+//   product instead of three takes nearly half the time off
+//   (scripts/torch_kernel_ablation.py), at ~1e-3 on the logits.
+//
+// Which paths launch the float32 body: none by default. Standard attention
+// in float32 (w2v2, HuBERT, MERT; the encoder and the tensor-parallel step)
+// takes K1 under FADTK_TPU_FLASH_F32=1 from T >= 640 (FADTK_TPU_FLASH_F32_MIN_T
+// overrides it; the JAX package's routing): every layer of a MERT forward at
+// the 10 s bucket (T=749). WavLM's float32 attention keeps its dense path
+// whatever the knob says, as in the JAX package, so the float32 K1b and K2
+// forms have no caller; they are kept complete and checked.
 //
 // The bias form adds, per 64x64 tile, a read of the pb tile (16 KB of f32,
 // batch-independent: 12 MB at H=12, T=499, which the 50 MB L2 keeps for the
-// B query CTAs of a head) and one gate value per query row. In bf16 each
-// lane adds gate[row] * pb[h, row, key] to its own accumulator positions,
-// read straight from L2 (pb rows of odd length are not 8-byte aligned, so
-// the reads are 4-byte); in f32 the pb tile is staged in the P buffer, whose
-// row r is read and then overwritten by the same two threads.
+// B query CTAs of a head) and one gate value per query row. Each lane adds
+// gate[row] * pb[h, row, key] to its own accumulator positions, read
+// straight from L2 before the product (pb rows of odd length are not 8-byte
+// aligned, so the reads are 4-byte); both bodies' S accumulators have the
+// same layout, so the code is shared.
 //
 // wgmma (one warpgroup per 64-row tile, K and V as swizzled shared-memory
-// descriptors) and TMA are not used: mma.sync keeps the same
-// register-resident structure with operand layouts that the bf16 SEANet
-// kernel already exercises.
+// descriptors) and TMA are not used: mma.sync keeps one register-resident
+// structure for both dtypes. For float32 the next step is wgmma's tf32 form,
+// which takes only K-major operands from shared memory: K^T is K-major as
+// stored, V would need a transposed staging.
 //
 // The grouped form's G (fadtk_flash_attention_pick_group) comes from this
 // card, not from the Pallas _pick_group's VMEM budget: shared memory is
@@ -104,6 +155,8 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "tf32.cuh"
+
 namespace {
 
 constexpr int D = 64;        // head dim
@@ -112,6 +165,7 @@ constexpr int BK = 64;       // keys per tile
 constexpr int THREADS = 128; // 4 warps
 constexpr float NEG = -0.7f * FLT_MAX;
 constexpr float SCALE = 0.125f;  // 1 / sqrt(64), exact
+constexpr float LOG2E = 1.4426950408889634f;
 
 // Element strides of the (batch, head, row) dimensions; the last is unit.
 struct Strides {
@@ -121,14 +175,6 @@ struct Strides {
 __device__ __forceinline__ int clamp_valid(const int* n_valid, int b, int T) {
   return min(max(n_valid[b], 1), T);
 }
-
-// ------------------------------------------------------------------------- //
-// bf16: mma.sync on the tensor cores, S, P and O in registers
-// ------------------------------------------------------------------------- //
-
-constexpr int LDH = D + 8;          // smem tile row stride, elements (144 B: ldmatrix conflict-free)
-constexpr int TILE = 64 * LDH;      // one 64-row tile
-constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -145,6 +191,131 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// A row of D elements is 2^SHIFT chunks of 16 bytes, PER elements each. The
+// tile loops below index chunks with an int and shifts: the bf16 no-bias
+// body sits at exactly 128 registers, and division there spills it.
+template <typename E>
+struct Chunks {
+  static constexpr int PER = 16 / sizeof(E), SHIFT = sizeof(E) == 2 ? 3 : 4;
+};
+
+// 64 rows x 64 columns of a (batch, head) into a padded smem tile of row
+// stride LD elements by cp.async, 16 bytes a thread; rows >= T are
+// zero-filled.
+template <int LD, typename E>
+__device__ __forceinline__ void fetch_tile(E* dst, const E* src, int row0, int T, long long st) {
+  using C = Chunks<E>;
+#pragma unroll
+  for (int i = threadIdx.x; i < (64 << C::SHIFT); i += THREADS) {
+    const int row = i >> C::SHIFT, c = (i & ((1 << C::SHIFT) - 1)) * C::PER;
+    const bool live = row0 + row < T;
+    cp_async16(dst + row * LD + c, live ? src + (row0 + row) * st + c : src, live ? 16 : 0);
+  }
+}
+
+// Rows q0 .. q0 + 63 (those < T) of a (batch, head)'s output set to zero.
+template <typename E>
+__device__ __forceinline__ void zero_tile(E* dst, int q0, int T, long long st) {
+  using C = Chunks<E>;
+  for (int i = threadIdx.x; i < (BQ << C::SHIFT); i += THREADS) {
+    const int row = i >> C::SHIFT, c = (i & ((1 << C::SHIFT) - 1)) * C::PER;
+    if (q0 + row < T)
+      *reinterpret_cast<uint4*>(dst + (q0 + row) * st + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// ------------------------------------------------------------------------- //
+// Shared by both bodies: the m16n8 accumulator layout of the logits S, where
+// lane (g = lane / 4, c = lane % 4) holds rows g and g + 8 at keys 8j + 2c and
+// 8j + 2c + 1 of each n8 tile j (s[j][0..1] row g, s[j][2..3] row g + 8)
+// ------------------------------------------------------------------------- //
+
+// The bias form's pb values for this lane's logits of the key tile at k0,
+// loaded before the product so that their latency (L2) overlaps it. pb0 and
+// pb1 are pb rows of the lane's two query rows.
+template <bool BIAS>
+__device__ __forceinline__ void load_bias(float (&pbv)[BK / 8][4], const float* pb0,
+                                          const float* pb1, int k0, int nv, int c) {
+  if (!BIAS) return;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * c + (e & 1);
+      pbv[j][e] = key < nv ? __ldg((e < 2 ? pb0 : pb1) + key) : 0.f;
+    }
+}
+
+// Scale, bias and key mask of the logits of the key tile at k0, then the
+// online softmax over it: a row's 64 logits lie in the four lanes of a quad.
+// The new running max m replaces the old; alpha = exp(m_old - m) is what the
+// output accumulator is to be scaled by; l (this lane's share of the row
+// sums) is rescaled and takes this tile's p = exp(s - m), unnormalised,
+// which go to emit(j, p[j][0..3]) for the p.v product.
+template <bool BIAS, typename Emit>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 8][4],
+                                               const float (&pbv)[BK / 8][4], float gate0,
+                                               float gate1, int k0, int nv, int c, float& m0,
+                                               float& m1, float& l0, float& l1, float& alpha0,
+                                               float& alpha1, Emit emit) {
+  const bool ragged = k0 + BK > nv;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * c + (e & 1);
+      float x = s[j][e] * SCALE;
+      if (BIAS) x += (e < 2 ? gate0 : gate1) * pbv[j][e];
+      s[j][e] = ragged && key >= nv ? NEG : x;
+    }
+  }
+  float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  alpha0 = exp2f((m0 - mn0) * LOG2E);
+  alpha1 = exp2f((m1 - mn1) * LOG2E);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const float p0 = exp2f((s[j][0] - mn0) * LOG2E), p1 = exp2f((s[j][1] - mn0) * LOG2E);
+    const float p2 = exp2f((s[j][2] - mn1) * LOG2E), p3 = exp2f((s[j][3] - mn1) * LOG2E);
+    rs0 += p0 + p1;
+    rs1 += p2 + p3;
+    emit(j, p0, p1, p2, p3);
+  }
+  l0 = l0 * alpha0 + rs0;
+  l1 = l1 * alpha1 + rs1;
+}
+
+// The quad's row sums of l, as the reciprocals that normalise the output.
+__device__ __forceinline__ void row_norms(float l0, float l1, float& inv0, float& inv1) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  inv0 = 1.f / fmaxf(l0, 1e-30f);
+  inv1 = 1.f / fmaxf(l1, 1e-30f);
+}
+
+// ------------------------------------------------------------------------- //
+// bf16: mma.sync.m16n8k16 on the tensor cores, S, P and O in registers
+// ------------------------------------------------------------------------- //
+
+constexpr int LDH = D + 8;          // smem tile row stride, elements (144 B: ldmatrix conflict-free)
+constexpr int TILE = 64 * LDH;      // one 64-row tile
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&a)[4], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -174,38 +345,16 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// 64 rows x 64 columns of a (batch, head) into a padded smem tile by
-// cp.async, 16 bytes a thread; rows >= T are zero-filled.
-__device__ __forceinline__ void fetch_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           int row0, int T, long long st) {
-#pragma unroll
-  for (int i = threadIdx.x; i < 64 * 8; i += THREADS) {
-    const int row = i >> 3, c = (i & 7) * 8;
-    const bool live = row0 + row < T;
-    cp_async16(dst + row * LDH + c, live ? src + (row0 + row) * st + c : src, live ? 16 : 0);
-  }
-}
-
-__device__ __forceinline__ void zero_tile_bf16(__nv_bfloat16* dst, int q0, int T,
-                                               long long st) {
-  for (int i = threadIdx.x; i < BQ * 8; i += THREADS) {
-    const int row = i >> 3, c = (i & 7) * 8;
-    if (q0 + row < T)
-      *reinterpret_cast<uint4*>(dst + (q0 + row) * st + c) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
 // One (query tile, head) of the bf16 kernel. qh/kh/vh/oh point at row 0 of
 // this (batch, head); gh at this (batch, head)'s gate row 0 (stride gst) and
 // pb_h at this head's (T, T) plane, both unused without BIAS. Qs holds the Q
 // tile, KV the ring of two (K, V) stages.
 //
 // Warp w owns query rows 16w .. 16w + 15 of the tile. In the m16n8k16
-// accumulator layout lane (g = lane / 4, c = lane % 4) holds rows g and g + 8
-// at columns 8j + 2c and 8j + 2c + 1 of each n8 tile j: the logits S (keys)
-// and the output O (dims) both live there, and the A fragments of P for the
-// p.v product are the S accumulators of two neighbouring n8 tiles, packed to
-// bf16 pairs, so S, P and O never leave registers.
+// accumulator layout the logits S (keys) and the output O (dims) both lie as
+// described above, and the A fragments of P for the p.v product are the S
+// accumulators of two neighbouring n8 tiles, packed to bf16 pairs, so S, P
+// and O never leave registers.
 template <bool BIAS>
 __device__ __forceinline__ void attend_bf16(
     __nv_bfloat16* Qs, __nv_bfloat16* KV,
@@ -217,9 +366,9 @@ __device__ __forceinline__ void attend_bf16(
   const int n_tiles = (nv + BK - 1) / BK;
 
   // Q and the first K/V stage: one cp.async group.
-  fetch_tile(Qs, qh, q0, T, qst);
-  fetch_tile(KV, kh, 0, T, kst);
-  fetch_tile(KV + TILE, vh, 0, T, vst);
+  fetch_tile<LDH>(Qs, qh, q0, T, qst);
+  fetch_tile<LDH>(KV, kh, 0, T, kst);
+  fetch_tile<LDH>(KV + TILE, vh, 0, T, vst);
   cp_async_commit();
 
   const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;  // this lane's two query rows
@@ -242,8 +391,8 @@ __device__ __forceinline__ void attend_bf16(
     // stage's last readers passed the barrier at the end of the last tile).
     if (kt + 1 < n_tiles) {
       __nv_bfloat16* nxt = KV + ((kt + 1) & 1) * 2 * TILE;
-      fetch_tile(nxt, kh, k0 + BK, T, kst);
-      fetch_tile(nxt + TILE, vh, k0 + BK, T, vst);
+      fetch_tile<LDH>(nxt, kh, k0 + BK, T, kst);
+      fetch_tile<LDH>(nxt + TILE, vh, k0 + BK, T, vst);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile kt (and Q) landed
@@ -251,18 +400,8 @@ __device__ __forceinline__ void attend_bf16(
     const __nv_bfloat16* Ks = KV + (kt & 1) * 2 * TILE;
     const __nv_bfloat16* Vs = Ks + TILE;
 
-    // The bias form's pb values for this lane's logits, loaded before the
-    // product so that their latency (L2) overlaps it.
     float pbv[BK / 8][4];
-    if (BIAS) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * j + 2 * c + (e & 1);
-          pbv[j][e] = key < nv ? __ldg((e < 2 ? pb0 : pb1) + key) : 0.f;
-        }
-    }
+    load_bias<BIAS>(pbv, pb0, pb1, k0, nv, c);
 
     // S = Q K^T: n8 tile j is keys 8j .. 8j + 7; one ldmatrix.x4 of K rows
     // gives the B fragments of two k16 steps. The Q fragments of those two
@@ -286,49 +425,13 @@ __device__ __forceinline__ void attend_bf16(
       }
     }
 
-    // Scale, bias and key mask, in registers.
-    const bool ragged = k0 + BK > nv;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * c + (e & 1);
-        float x = s[j][e] * SCALE;
-        if (BIAS) x += (e < 2 ? gate0 : gate1) * pbv[j][e];
-        s[j][e] = ragged && key >= nv ? NEG : x;
-      }
-    }
-
-    // Online softmax over this tile: a row's 64 logits lie in the four
-    // lanes of a quad.
-    float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = exp2f((m0 - mn0) * LOG2E), alpha1 = exp2f((m1 - mn1) * LOG2E);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
     unsigned pa[BK / 16][4];  // P as the A fragments of the p.v product
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const float p0 = exp2f((s[j][0] - mn0) * LOG2E), p1 = exp2f((s[j][1] - mn0) * LOG2E);
-      const float p2 = exp2f((s[j][2] - mn1) * LOG2E), p3 = exp2f((s[j][3] - mn1) * LOG2E);
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    l0 = l0 * alpha0 + rs0;
-    l1 = l1 * alpha1 + rs1;
+    float alpha0, alpha1;
+    online_softmax<BIAS>(s, pbv, gate0, gate1, k0, nv, c, m0, m1, l0, l1, alpha0, alpha1,
+                         [&](int j, float p0, float p1, float p2, float p3) {
+                           pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+                           pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+                         });
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       o[j][0] *= alpha0;
@@ -353,13 +456,9 @@ __device__ __forceinline__ void attend_bf16(
     __syncthreads();  // every warp is done with this stage
   }
 
-  // The quad's row sums, then the output straight from registers.
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // The output straight from registers.
+  float inv0, inv1;
+  row_norms(l0, l1, inv0, inv1);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     if (r0 < T)
@@ -392,7 +491,7 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, Strides sq,
     const int h = h0 + hh;
     __nv_bfloat16* oh = out + b * so.b + h * so.h;
     if (q0 >= nv) {  // fully padded query tile: exact zeros, no compute
-      zero_tile_bf16(oh, q0, T, so.t);
+      zero_tile(oh, q0, T, so.t);
       continue;
     }
     if (hh) __syncthreads();  // the previous head's readers of Qs are done
@@ -404,135 +503,213 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, Strides sq,
 }
 
 // ------------------------------------------------------------------------- //
-// f32: FMA on CUDA cores
+// f32: 3xTF32 mma.sync.m16n8k8 on the tensor cores, S, P and O in registers
 // ------------------------------------------------------------------------- //
 
-constexpr int LDF = D + 1;  // odd stride: column walks hit distinct banks
-constexpr size_t F32_SMEM = 4 * 64 * LDF * sizeof(float);
+constexpr int LDK = D + 8;  // K tile row stride, floats (288 B): float2 reads conflict-free
+constexpr int LDV = D + 4;  // V tile row stride, floats (272 B): float4 reads conflict-free
+constexpr int KTILE = 64 * LDK, VTILE = 64 * LDV, STAGE = KTILE + VTILE;
+constexpr int QFRAG = (D / 8) * 2 * 32 * 4;  // a warp's Q fragments, hi and lo: 8 KB
+// Two (K, V) stages, then the four warps' Q fragments: 104,448 bytes.
+constexpr size_t F32_SMEM = (2 * STAGE + 4 * QFRAG) * sizeof(float);
 
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int row0, int T, long long st) {
-  // 64 rows x 64 columns = 1024 float4; rows >= T read as 0.
-  for (int i = threadIdx.x; i < 64 * 16; i += THREADS) {
-    const int row = i >> 4, c = (i & 15) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + row < T)
-      val = *reinterpret_cast<const float4*>(src + (row0 + row) * st + c);
-    float* d = dst + row * LDF + c;
-    d[0] = val.x; d[1] = val.y; d[2] = val.z; d[3] = val.w;
-  }
+// d[j] += a . b[j] in 3xTF32 over the NT n8 tiles of one k8 step: a pass of
+// the two small terms, then one of the big term, each over all tiles, so NT
+// independent products lie between two that depend on each other.
+template <int NT>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[NT][4], const unsigned (&ahi)[4],
+                                           const unsigned (&alo)[4], const unsigned (&bhi)[NT][2],
+                                           const unsigned (&blo)[NT][2]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(d[j], alo, bhi[j][0], bhi[j][1]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(d[j], ahi, blo[j][0], blo[j][1]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_tf32(d[j], ahi, bhi[j][0], bhi[j][1]);
 }
 
-// One (query tile, head) of the f32 kernel; arguments as attend_bf16's.
+// One (query tile, head) of the float32 kernel; arguments as attend_bf16's,
+// smem the kernel's dynamic shared memory: the ring of two (K, V) stages,
+// then each warp's Q fragments. The fragment orders are the header's.
 template <bool BIAS>
 __device__ __forceinline__ void attend_f32(
-    float* Qs, float* Ks, float* Vs, float* Ps,
-    const float* qh, long long qst, const float* kh, long long kst,
+    float* smem, const float* qh, long long qst, const float* kh, long long kst,
     const float* vh, long long vst, float* oh, long long ost,
     const float* pb_h, const float* gh, long long gst, int q0, int nv, int T) {
-  load_tile_f32(Qs, qh, q0, T, qst);
-  // Thread (r, half) owns query row r and the interleaved columns 2*j + half.
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-  float m_i = NEG, l_i = 0.f;
-  float o[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) o[j] = 0.f;
-  const float g_r = (BIAS && q0 + r < T) ? gh[(q0 + r) * gst] : 0.f;
-
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
   const int n_tiles = (nv + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile_f32(Ks, kh, k0, T, kst);
-    load_tile_f32(Vs, vh, k0, T, vst);
-    if (BIAS) {  // the pb tile, staged in Ps; rows >= T, keys >= n_valid read as 0
-      for (int i = threadIdx.x; i < BQ * BK; i += THREADS) {
-        const int row = i >> 6, c = i & 63;
-        Ps[row * LDF + c] =
-            (q0 + row < T && k0 + c < nv) ? pb_h[(size_t)(q0 + row) * T + k0 + c] : 0.f;
-      }
-    }
-    __syncthreads();
+  float* KV = smem;
+  float4* Qf = reinterpret_cast<float4*>(smem + 2 * STAGE) + warp * (QFRAG / 4);
 
-    float s[32];
+  fetch_tile<LDK>(KV, kh, 0, T, kst);
+  fetch_tile<LDV>(KV + KTILE, vh, 0, T, vst);
+  cp_async_commit();
+
+  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;  // this lane's two query rows
+  float gate0 = 0.f, gate1 = 0.f;
+  if (BIAS) {
+    if (r0 < T) gate0 = gh[r0 * gst];
+    if (r1 < T) gate1 = gh[r1 * gst];
+  }
+  const float* pb0 = BIAS ? pb_h + (size_t)min(r0, T - 1) * T : nullptr;
+  const float* pb1 = BIAS ? pb_h + (size_t)min(r1, T - 1) * T : nullptr;
+
+  // Q's A fragments of the eight k8 steps, split once and kept in shared
+  // memory as (step, hi / lo, lane) float4s, each lane's own (rows >= T read
+  // as 0): slot c of step kk is dim 8kk + 2c, slot c + 4 dim 8kk + 2c + 1.
+  // Held in registers they would take 64 and push the body into spills.
 #pragma unroll
-    for (int j = 0; j < 32; ++j) s[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = Qs[r * LDF + d];
-#pragma unroll
-      for (int j = 0; j < 32; ++j) s[j] = fmaf(qv, Ks[(2 * j + half) * LDF + d], s[j]);
-    }
-    float mx = NEG;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = 2 * j + half;
-      float x = s[j] * SCALE;
-      if (BIAS) x += g_r * Ps[r * LDF + c];  // this thread rewrites Ps[r][c] below
-      s[j] = (k0 + c < nv) ? x : NEG;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    const float alpha = expf(m_i - m_new);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(s[j] - m_new);
-      rs += p;
-      Ps[r * LDF + 2 * j + half] = p;
-      o[j] *= alpha;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    l_i = l_i * alpha + rs;
-    m_i = m_new;
-    __syncwarp();  // row r of P is written by this thread and its pair
-    for (int c = 0; c < BK; ++c) {
-      const float p = Ps[r * LDF + c];
-#pragma unroll
-      for (int j = 0; j < 32; ++j) o[j] = fmaf(p, Vs[c * LDF + 2 * j + half], o[j]);
-    }
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const float2 zero = make_float2(0.f, 0.f);
+    const float* qrow = qh + r0 * qst + 8 * kk + 2 * c;
+    const float2 a0 = r0 < T ? __ldg(reinterpret_cast<const float2*>(qrow)) : zero;
+    const float2 a1 = r1 < T ? __ldg(reinterpret_cast<const float2*>(qrow + 8 * qst)) : zero;
+    float4 hi, lo;
+    split(a0.x, hi.x, lo.x);
+    split(a1.x, hi.y, lo.y);
+    split(a0.y, hi.z, lo.z);
+    split(a1.y, hi.w, lo.w);
+    Qf[(2 * kk) * 32 + lane] = hi;
+    Qf[(2 * kk + 1) * 32 + lane] = lo;
   }
 
-  const float den = fmaxf(l_i, 1e-30f);
-  __syncthreads();
+  float o[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < 32; ++j) Ps[r * LDF + 2 * j + half] = o[j] / den;
-  __syncthreads();
-  for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
-    const int row = i >> 6, c = i & 63;
-    if (q0 + row < T) oh[(q0 + row) * ost + c] = Ps[row * LDF + c];
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < n_tiles) {  // tile kt + 1 into the other stage
+      float* nxt = KV + ((kt + 1) & 1) * STAGE;
+      fetch_tile<LDK>(nxt, kh, k0 + BK, T, kst);
+      fetch_tile<LDV>(nxt + KTILE, vh, k0 + BK, T, vst);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt landed
+    __syncthreads();
+    const float* Ks = KV + (kt & 1) * STAGE;
+    const float* Vs = Ks + KTILE;
+
+    float pbv[BK / 8][4];
+    load_bias<BIAS>(pbv, pb0, pb1, k0, nv, c);
+
+    // S = Q K^T: n8 tile j is keys 8j .. 8j + 7; lane (g, c) reads dims
+    // 8kk + 2c and 8kk + 2c + 1 of key 8j + g, one float2.
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float4 h4 = Qf[(2 * kk) * 32 + lane], l4 = Qf[(2 * kk + 1) * 32 + lane];
+      const unsigned qhi[4] = {__float_as_uint(h4.x), __float_as_uint(h4.y),
+                               __float_as_uint(h4.z), __float_as_uint(h4.w)};
+      const unsigned qlo[4] = {__float_as_uint(l4.x), __float_as_uint(l4.y),
+                               __float_as_uint(l4.z), __float_as_uint(l4.w)};
+      unsigned bhi[BK / 8][2], blo[BK / 8][2];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float2 kb = *reinterpret_cast<const float2*>(Ks + (8 * j + g) * LDK + 8 * kk + 2 * c);
+        split(kb.x, bhi[j][0], blo[j][0]);
+        split(kb.y, bhi[j][1], blo[j][1]);
+      }
+      mma_3xtf32(s, qhi, qlo, bhi, blo);
+    }
+
+    float alpha0, alpha1;
+    online_softmax<BIAS>(s, pbv, gate0, gate1, k0, nv, c, m0, m1, l0, l1, alpha0, alpha1,
+                         [&](int j, float p0, float p1, float p2, float p3) {
+                           s[j][0] = p0;
+                           s[j][1] = p1;
+                           s[j][2] = p2;
+                           s[j][3] = p3;
+                         });
+
+    // t = P V. k8 step kk is S's n8 tile kk: A's slot c is key 8kk + 2c,
+    // slot c + 4 key 8kk + 2c + 1, and V's B fragment is read at those two
+    // key rows, dims 4g .. 4g + 3 (n8 tiles 0-3) and 32 + 4g .. (tiles 4-7).
+    // The tensor cores' float32 sums round toward zero, so a chain over all
+    // key tiles would drift (by ~1e-5 of |O| at T=499): the tile's product
+    // is a chain of its own, from zero, and O = alpha O + t in float32.
+    float t[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) t[j][0] = t[j][1] = t[j][2] = t[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      unsigned phi[4], plo[4];
+      split(s[kk][0], phi[0], plo[0]);  // row g, key 2c
+      split(s[kk][2], phi[1], plo[1]);  // row g + 8, key 2c
+      split(s[kk][1], phi[2], plo[2]);  // row g, key 2c + 1
+      split(s[kk][3], phi[3], plo[3]);  // row g + 8, key 2c + 1
+      const float* v0 = Vs + (8 * kk + 2 * c) * LDV + 4 * g;
+      const float4 x0 = *reinterpret_cast<const float4*>(v0);
+      const float4 x1 = *reinterpret_cast<const float4*>(v0 + 32);
+      const float4 y0 = *reinterpret_cast<const float4*>(v0 + LDV);
+      const float4 y1 = *reinterpret_cast<const float4*>(v0 + LDV + 32);
+      const float vk0[D / 8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};  // key 2c
+      const float vk1[D / 8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};  // key 2c + 1
+      unsigned bhi[D / 8][2], blo[D / 8][2];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        split(vk0[j], bhi[j][0], blo[j][0]);
+        split(vk1[j], bhi[j][1], blo[j][1]);
+      }
+      mma_3xtf32(t, phi, plo, bhi, blo);
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] = fmaf(o[j][0], alpha0, t[j][0]);
+      o[j][1] = fmaf(o[j][1], alpha0, t[j][1]);
+      o[j][2] = fmaf(o[j][2], alpha1, t[j][2]);
+      o[j][3] = fmaf(o[j][3], alpha1, t[j][3]);
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // The output straight from registers: o[j][e] is row g (e < 2) or g + 8,
+  // dim 8c + 4 (e & 1) + j for j < 4 and 32 + 8c + 4 (e & 1) + j - 4 above.
+  float inv0, inv1;
+  row_norms(l0, l1, inv0, inv1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = e < 2 ? r0 : r1;
+    const float inv = e < 2 ? inv0 : inv1;
+    if (row < T) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        *reinterpret_cast<float4*>(oh + row * ost + 32 * half + 8 * c + 4 * (e & 1)) =
+            make_float4(o[4 * half][e] * inv, o[4 * half + 1][e] * inv,
+                        o[4 * half + 2][e] * inv, o[4 * half + 3][e] * inv);
+      }
+    }
   }
 }
 
+// Grid and heads as attn_bf16_kernel's; dynamic shared memory F32_SMEM.
 template <bool BIAS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 attn_f32_kernel(const float* __restrict__ q, Strides sq, const float* __restrict__ k,
                 Strides sk, const float* __restrict__ v, Strides sv,
                 const int* __restrict__ n_valid, const float* __restrict__ pb,
                 const float* __restrict__ gate, Strides sg, float* __restrict__ out,
                 Strides so, int T, int G) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + 64 * LDF;
-  float* Vs = Ks + 64 * LDF;
-  float* Ps = Vs + 64 * LDF;
+  extern __shared__ __align__(16) float smem[];
 
   const int b = blockIdx.z, h0 = blockIdx.y * G, q0 = blockIdx.x * BQ;
   const int nv = clamp_valid(n_valid, b, T);
 
+  // No barrier between heads: each head's key loop ends with one, after the
+  // last reads of the ring, and a lane reads only the Q fragments it wrote.
   for (int hh = 0; hh < G; ++hh) {
     const int h = h0 + hh;
     float* oh = out + b * so.b + h * so.h;
     if (q0 >= nv) {  // fully padded query tile: exact zeros, no compute
-      for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
-        const int row = i >> 6, c = i & 63;
-        if (q0 + row < T) oh[(q0 + row) * so.t + c] = 0.f;
-      }
+      zero_tile(oh, q0, T, so.t);
       continue;
     }
-    if (hh) __syncthreads();  // the previous head's output is written out of Ps
-    attend_f32<BIAS>(Qs, Ks, Vs, Ps, q + b * sq.b + h * sq.h, sq.t, k + b * sk.b + h * sk.h,
-                     sk.t, v + b * sv.b + h * sv.h, sv.t, oh, so.t,
+    attend_f32<BIAS>(smem, q + b * sq.b + h * sq.h, sq.t, k + b * sk.b + h * sk.h, sk.t,
+                     v + b * sv.b + h * sv.h, sv.t, oh, so.t,
                      BIAS ? pb + (size_t)h * T * T : nullptr,
                      BIAS ? gate + b * sg.b + h * sg.h : nullptr, sg.t, q0, nv, T);
   }

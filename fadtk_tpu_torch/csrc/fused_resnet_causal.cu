@@ -38,6 +38,8 @@
 #include <algorithm>
 #include <cstddef>
 
+#include "tf32.cuh"
+
 namespace {
 
 // elu for the float32 form: expm1 as its Taylor polynomial of degree 5 on
@@ -130,27 +132,7 @@ cudaError_t resident_ctas(K kernel, int threads, size_t smem, int& device, int& 
 // KB, 8 warps, one CTA per SM) and items of 32 rows.
 // --------------------------------------------------------------------------
 
-__device__ __forceinline__ unsigned tf32_rna(float v) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// Not volatile: the scheduler may interleave independent products.
-// v = hi + lo, both TF32 values: hi = tf32(v), lo = tf32(v - hi).
-__device__ __forceinline__ void split(float v, float& hi, float& lo) {
-  hi = __uint_as_float(tf32_rna(v));
-  lo = __uint_as_float(tf32_rna(v - hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// tf32_rna, split and mma_tf32: tf32.cuh.
 
 template <int C>
 struct F32Shape {

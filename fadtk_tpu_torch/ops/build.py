@@ -1,10 +1,11 @@
 """Build a kernel source into a shared library with nvcc, once per content.
 
 Every hand-written kernel of the port is one ``csrc/*.cu`` file with a plain C
-entry point. ``library_path`` compiles it with
-``nvcc -gencode arch=compute_90a,code=sm_90a`` into ``build/fadtk_tpu_torch/``
-under a name keyed on a hash of the source and the flags, so an edit rebuilds
-and an unchanged source is reused; the ptxas register/shared-memory report
+entry point (helpers shared between sources live in ``csrc/*.cuh``).
+``library_path`` compiles it with ``nvcc -gencode arch=compute_90a,code=sm_90a``
+into ``build/fadtk_tpu_torch/`` under a name keyed on a hash of the source, the
+shared headers and the flags, so an edit rebuilds and an unchanged source is
+reused; the ptxas register/shared-memory report
 lands beside it as ``.log``. The wrappers load the library with ctypes.
 Nothing is built at import time: only a call on a CUDA tensor builds.
 """
@@ -39,17 +40,24 @@ def nvcc() -> str:
     return found
 
 
+def nvcc_command(source: Path, out: Path) -> list[str]:
+    """The nvcc command line that builds ``source`` into the library ``out``;
+    ``csrc/`` is on the include path, so a copy of a source elsewhere builds
+    too."""
+    return [nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(out), str(source)]
+
+
 def library_path(source: Path) -> Path:
     """Build ``source`` (if needed) and return the library's path."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"libfadtk_{source.stem}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     log.info(f"building {out.name} with nvcc")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(nvcc_command(source, tmp), capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)  # ptxas -v report

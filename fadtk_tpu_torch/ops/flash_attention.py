@@ -21,8 +21,10 @@ projection go in without a copy.
 
 Both are one CUDA C++ source for sm_90a
 (``fadtk_tpu_torch/csrc/flash_attention_packed.cu``; its header says what
-bounds it and how the layouts are read). Routing is by the tensor's device,
-and only by it:
+bounds it and how the layouts are read), on the tensor cores in both dtypes:
+bf16 products in bf16, float32 products as 3xTF32 (each taken three times on
+TF32 hi and lo parts, float32 accumulation). Routing is by the tensor's
+device, and only by it:
 
 - CPU tensors go to the plain torch twins, ``flash_attention_packed_reference``
   and ``flash_attention_reference`` (same signatures, keys masked at

@@ -1,6 +1,6 @@
 """Where a kernel's time goes: K1/K1b, K3 (FMA and FFT bodies) and K4 with one phase removed at a time.
 
-    python3 scripts/torch_kernel_ablation.py
+    python3 scripts/torch_kernel_ablation.py [GROUP ...]
 
 Run from the root of a checkout on a machine with a Hopper card and nvcc.
 Builds variants of ``csrc/flash_attention_packed.cu``, ``csrc/fused_log_mel.cu``
@@ -8,14 +8,16 @@ and ``csrc/fused_resnet_causal.cu`` into ``build/ablation/``, each with one
 phase cut out of the source text (the outputs of a cut variant are wrong;
 only its time means something), and prints each variant's time (CUDA events,
 mean of 20 back-to-back launches, two rounds in turn) at the main path's
-shapes: the bf16 flash attention at B=16 T=499 H=12 with chip_smoke.py's
-ragged n_valid, without (K1) and with (K1b) WavLM's bias; K3's folded FMA
+shapes: the flash attention at B=16 T=499 H=12 with chip_smoke.py's
+ragged n_valid, without (K1) and with (K1b) WavLM's bias, in bf16 and in
+float32 (3xTF32); K3's folded FMA
 body at Whisper's B=16 (``log10_clamp``, strided view) and its FFT body at
 CLAP-LAION's B=32 x 1001 frames (``db_clamp``, strided view, hop 480); K4's
 float32 (3xTF32) and bf16 forms at
 the four encodec-emb call sites of a B=16 x 10 s forward. The full kernel
 minus a variant is what the removed phase costs, as far as the phases do not
-overlap.
+overlap. GROUP picks what to ablate (default all): attention, attention-f32,
+k3, k3-fft, k4-f32, k4-bf16.
 """
 
 import ctypes
@@ -33,6 +35,11 @@ from fadtk_tpu_torch.ops import fused_log_mel as k3  # noqa: E402
 from fadtk_tpu_torch.ops import fused_resnet as fr  # noqa: E402
 
 OUT = build.REPO / "build" / "ablation"
+# tf32.cuh's rounding as the cvt instruction it replaces (shared by K1's and
+# K4's float32 forms).
+CVT_SPLIT = ("  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;",
+             "  unsigned r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : \"f\"(v));\n"
+             "  return r;", None)
 
 K3_NEXT = ("      if (next) {\n        stage_bases(s + 1, c, (s + 1) & 1);\n        load(s + 1);\n"
            "      }\n")
@@ -57,14 +64,36 @@ K3F_VARIANTS = {
 }
 ATTN_PV = ("        mma_bf16(o[j], pa[kk], vb[0], vb[1]);\n"
            "        mma_bf16(o[j + 1], pa[kk], vb[2], vb[3]);\n")
-ATTN_EXP = ("      const float p0 = exp2f((s[j][0] - mn0) * LOG2E), p1 = exp2f((s[j][1] - mn0) * LOG2E);\n"
-            "      const float p2 = exp2f((s[j][2] - mn1) * LOG2E), p3 = exp2f((s[j][3] - mn1) * LOG2E);\n")
+# The softmax and the ring are shared by the bf16 and float32 bodies.
+ATTN_EXP = [("    const float p0 = exp2f((s[j][0] - mn0) * LOG2E), p1 = exp2f((s[j][1] - mn0) * LOG2E);\n"
+             "    const float p2 = exp2f((s[j][2] - mn1) * LOG2E), p3 = exp2f((s[j][3] - mn1) * LOG2E);\n",
+             "    const float p0 = s[j][0], p1 = s[j][1], p2 = s[j][2], p3 = s[j][3];\n", None)]
+ATTN_RING = [("    cp_async_wait<1>();", "    cp_async_wait<0>();", None)]
 ATTN_VARIANTS = {
     "full": [],
     "no p.v product": [(ATTN_PV, "", None)],
-    "no softmax exponentials": [(ATTN_EXP, "      const float p0 = s[j][0], p1 = s[j][1], p2 = s[j][2], "
-                                           "p3 = s[j][3];\n", None)],
-    "no K/V ring overlap": [("    cp_async_wait<1>();", "    cp_async_wait<0>();", None)],
+    "no softmax exponentials": ATTN_EXP,
+    "no K/V ring overlap": ATTN_RING,
+}
+# The float32 body (3xTF32): a split replaced by the value as its hi part
+# and a zero lo part keeps the products' count.
+NO_SPLIT = ("// The same split, as the bit patterns mma.sync takes.",
+            "__device__ __forceinline__ void no_split(float v, unsigned& hi, unsigned& lo) {\n"
+            "  hi = __float_as_uint(v);\n  lo = 0u;\n}\n"
+            "// The same split, as the bit patterns mma.sync takes.", None)
+ATTN_F32_VARIANTS = {
+    "full": [],
+    "no lo terms (1xTF32)": [
+        ("  for (int j = 0; j < NT; ++j) mma_tf32(d[j], alo, bhi[j][0], bhi[j][1]);\n", "", None),
+        ("  for (int j = 0; j < NT; ++j) mma_tf32(d[j], ahi, blo[j][0], blo[j][1]);\n", "", None)],
+    "no K split": [NO_SPLIT, ("        split(kb.", "        no_split(kb.", None)],
+    "no V split": [NO_SPLIT, ("        split(vk0[j]", "        no_split(vk0[j]", None),
+                   ("        split(vk1[j]", "        no_split(vk1[j]", None)],
+    "no q.k product": [("      mma_3xtf32(s, qhi, qlo, bhi, blo);\n", "", None)],
+    "no p.v product": [("      mma_3xtf32(t, phi, plo, bhi, blo);\n", "", None)],
+    "no softmax exponentials": ATTN_EXP,
+    "no K/V ring overlap": ATTN_RING,
+    "split by cvt.rna.tf32.f32": [CVT_SPLIT],
 }
 K4_ITEMS = "for (int it = warp; it < ITEMS; it += S::WARPS) {"
 # The f32 form's two item loops come first in the source, then the bf16 form's.
@@ -94,6 +123,7 @@ K4F32_VARIANTS = {
                     (K4_ITEMS, K4_ITEMS.replace("it < ITEMS", "it < 0"), 0)],
     "3 CTAs per SM at C <= 128": [(K4F32_SMEM, K4F32_SMEM.replace(
         "* LD;", "* LD + (C <= 128 ? 4096 : 0);"), None)],
+    "split by cvt.rna.tf32.f32": [CVT_SPLIT],
 }
 K4_ETRANSPOSE = "      for (int i = tid; i < (C / 2) * (TT / 8); i += NTH) {"
 K4_STORE = "    for (int i = tid; i < C * (TT / 8); i += NTH) {"
@@ -121,15 +151,15 @@ def _edit(src: str, old: str, new: str, nth=None) -> str:
 def build_variants(source: Path, variants: dict, tag: str = "") -> dict:
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
+    header = (build.CSRC / "tf32.cuh").read_text().replace("#pragma once\n", "")
     for name, edits in variants.items():
-        text = source.read_text()
+        text = source.read_text().replace('#include "tf32.cuh"\n', header)  # edits may reach it
         for edit in edits:
             text = _edit(text, *edit)
         slug = "".join(ch if ch.isalnum() else "_" for ch in f"{tag}{name}")
         cu = OUT / f"{source.stem}-{slug}.cu"
         cu.write_text(text)
-        procs[name] = (subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-o",
-                                         str(cu.with_suffix(".so")), str(cu)],
+        procs[name] = (subprocess.Popen(build.nvcc_command(cu, cu.with_suffix(".so")),
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), cu.with_suffix(".so"))
     libs = {}
@@ -201,11 +231,11 @@ def k3_fft_calls(libs) -> dict:
     return calls
 
 
-def attn_calls(libs) -> dict:
+def attn_calls(libs, dtype=torch.bfloat16) -> dict:
     dev = torch.device("cuda")
     b, t, h = 16, 499, 12
     g = torch.Generator(device=dev).manual_seed(0)
-    q, k, v = (torch.randn((b, t, h * 64), generator=g, device=dev).bfloat16() for _ in range(3))
+    q, k, v = (torch.randn((b, t, h * 64), generator=g, device=dev).to(dtype) for _ in range(3))
     nv = torch.tensor([1, 64, 65, t, t - 1, 128, 2, 200, 63, t, 129, 300, t // 2, 450, 191, t],
                       dtype=torch.int32, device=dev)
     pb = torch.randn((h, t, t), generator=g, device=dev)
@@ -219,7 +249,8 @@ def attn_calls(libs) -> dict:
         for label, bias in (("K1", (None, None)), ("K1b", (pb.data_ptr(), gate.data_ptr()))):
             def call(fn=fn, bias=bias):
                 rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), nv.data_ptr(), *bias,
-                        out.data_ptr(), b, t, h, 1, torch.cuda.current_stream().cuda_stream)
+                        out.data_ptr(), b, t, h, int(dtype == torch.bfloat16),
+                        torch.cuda.current_stream().cuda_stream)
                 assert rc == 0, rc
             calls[f"{label} {name}"] = call
     return calls
@@ -254,17 +285,29 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output", flush=True)
+    attention = build.CSRC / "flash_attention_packed.cu"
     resnet = build.CSRC / "fused_resnet_causal.cu"
-    calls = {**attn_calls(build_variants(build.CSRC / "flash_attention_packed.cu",
-                                         ATTN_VARIANTS)),
-             **{f"K3 {k}": v for k, v in k3_calls(build_variants(
-                 build.CSRC / "fused_log_mel.cu", K3_VARIANTS)).items()},
-             **{f"K3 FFT {k}": v for k, v in k3_fft_calls(build_variants(
-                 build.CSRC / "fused_log_mel.cu", K3F_VARIANTS, "fft")).items()},
-             **{f"K4 f32 {k}": v for k, v in k4_calls(build_variants(
-                 resnet, K4F32_VARIANTS, "f32"), torch.float32).items()},
-             **{f"K4 bf16 {k}": v for k, v in k4_calls(build_variants(
-                 resnet, K4_VARIANTS), torch.bfloat16).items()}}
+    mel = build.CSRC / "fused_log_mel.cu"
+    groups = {
+        "attention": lambda: attn_calls(build_variants(attention, ATTN_VARIANTS)),
+        "attention-f32": lambda: {k.replace(" ", " f32 ", 1): v for k, v in attn_calls(
+            build_variants(attention, ATTN_F32_VARIANTS, "f32"), torch.float32).items()},
+        "k3": lambda: {f"K3 {k}": v for k, v in k3_calls(build_variants(
+            mel, K3_VARIANTS)).items()},
+        "k3-fft": lambda: {f"K3 FFT {k}": v for k, v in k3_fft_calls(build_variants(
+            mel, K3F_VARIANTS, "fft")).items()},
+        "k4-f32": lambda: {f"K4 f32 {k}": v for k, v in k4_calls(build_variants(
+            resnet, K4F32_VARIANTS, "f32"), torch.float32).items()},
+        "k4-bf16": lambda: {f"K4 bf16 {k}": v for k, v in k4_calls(build_variants(
+            resnet, K4_VARIANTS), torch.bfloat16).items()},
+    }
+    picked = sys.argv[1:] or list(groups)
+    unknown = set(picked) - set(groups)
+    if unknown:
+        raise SystemExit(f"ablation: unknown group(s) {sorted(unknown)}; known: {list(groups)}")
+    calls = {}
+    for name in picked:
+        calls.update(groups[name]())
     times = {k: [] for k in calls}
     for _ in range(2):
         for name, call in calls.items():
