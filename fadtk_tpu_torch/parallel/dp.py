@@ -40,9 +40,10 @@ import numpy as np
 import torch
 
 from ..metric.stats import WelfordState, welford_init, welford_merge_across, welford_update
+from ..runner import profiling
 from ..utils import log
 from .mesh import Mesh
-from .tp import _to_device
+from .tp import _step_inputs
 
 
 @dataclass
@@ -103,11 +104,28 @@ class _RankState:
     @torch.inference_mode()
     def fold_batch(self, weights: np.ndarray, *arrays: np.ndarray) -> None:
         """Embed this rank's dp slice of a batch whose rows divide by dp."""
-        per = weights.shape[0] // self.mesh.dp
+        n = weights.shape[0]
+        pad = int(np.count_nonzero(weights == 0))
+        row_samples = int(np.prod(arrays[0].shape[1:]))
+        profiling.count_batch(n, pad, row_samples, (n - pad) * row_samples)
+        per = n // self.mesh.dp
         rows = slice(self.mesh.dp_rank * per, (self.mesh.dp_rank + 1) * per)
-        xs = [_to_device(np.ascontiguousarray(a[rows]), self.mesh.device) for a in arrays]
-        w = _to_device(weights[rows], self.mesh.device)
-        self.fold_frames(self.forward(*xs), w)
+        with profiling.stage("pipeline.step"):
+            *xs, w = _step_inputs(self.mesh.device,
+                                  *(np.ascontiguousarray(a[rows]) for a in arrays),
+                                  weights[rows])
+            self.fold_frames(self.forward(*xs), w)
+        profiling.step_end(self.mesh.device)
+
+    @torch.inference_mode()
+    def fold_tail(self, tail, clip: np.ndarray) -> None:
+        """A clip's ragged tail at its exact length, outside the batches."""
+        with profiling.stage("pipeline.step"):
+            profiling.step_start(self.mesh.device)
+            frames = tail(clip)
+            if frames is not None and frames.shape[0]:
+                self.fold_frames(frames)
+        profiling.step_end(self.mesh.device)
 
     @torch.inference_mode()
     def merged(self) -> WelfordState:
@@ -116,18 +134,21 @@ class _RankState:
     def checkpoint(self, files_done: int) -> None:
         """Save the merged state: it covers the clips folded so far exactly,
         since the callers flush their pending rows first."""
-        state = self.merged()
-        if self.mesh.rank == 0:
-            self.ckpt.save(tuple(x.cpu().numpy() for x in state), files_done)
-        else:
-            self.ckpt.mark(files_done)
+        with profiling.stage("pipeline.checkpoint"):
+            state = self.merged()
+            if self.mesh.rank == 0:
+                self.ckpt.save(tuple(x.cpu().numpy() for x in state), files_done)
+            else:
+                self.ckpt.mark(files_done)
 
     def finalize(self) -> tuple[np.ndarray, np.ndarray, int]:
         """One fetch of the merged state: (mu, cov, n) in float64."""
-        mu, m2, n = self.merged()
-        mu = mu.cpu().numpy().astype(np.float64)
-        m2 = m2.cpu().numpy().astype(np.float64)
-        n = int(n.item())
+        with profiling.stage("pipeline.fetch"):
+            mu, m2, n = self.merged()
+            mu = mu.cpu().numpy().astype(np.float64)
+            m2 = m2.cpu().numpy().astype(np.float64)
+            n = int(n.item())
+        profiling.read_steps()
         if n < 2:
             return mu, np.zeros_like(m2), n
         return mu, m2 / (n - 1), n
@@ -169,6 +190,7 @@ def dp_chunk_dataset_stats(
     if batch % dp:
         raise ValueError(f"batch {batch} must divide dp={dp}")
     rank = _RankState(spec.forward, spec.num_features, mesh, ckpt, initial_state)
+    profiling.steps_begin(mesh.device)
 
     pending: list[tuple] = []  # per-clip tuples of chunk arrays
     n_pending = 0
@@ -192,17 +214,14 @@ def dp_chunk_dataset_stats(
             parts, weights = _pad_rows(parts, taken, dp)
             rank.fold_batch(weights, *parts)
 
-    for clip in clips_iter:
+    for clip in profiling.waits(clips_iter, "pipeline.wait_clips"):
         clip = np.asarray(clip)
         group = spec.make_chunks(clip)
         if group[0].shape[0]:
             pending.append(group)
             n_pending += group[0].shape[0]
         if spec.tail is not None and files_done % dp == mesh.dp_rank:
-            with torch.inference_mode():
-                frames = spec.tail(clip)
-                if frames is not None and frames.shape[0]:
-                    rank.fold_frames(frames)
+            rank.fold_tail(spec.tail, clip)
         flush(force=False)
         files_done += 1
         if ckpt is not None and ckpt.due(files_done):
@@ -236,6 +255,7 @@ def dp_whole_clip_dataset_stats(
         batch = spec.preferred_batch * dp
     batch = max(dp, (batch // dp) * dp)
     rank = _RankState(spec.forward, spec.num_features, mesh, ckpt, initial_state)
+    profiling.steps_begin(mesh.device)
 
     groups: dict[tuple, list[np.ndarray]] = defaultdict(list)
     n_buffered = 0
@@ -246,7 +266,7 @@ def dp_whole_clip_dataset_stats(
         (stacked,), weights = _pad_rows([np.stack(rows)], len(rows), dp)
         rank.fold_batch(weights, stacked)
 
-    for clip in clips_iter:
+    for clip in profiling.waits(clips_iter, "pipeline.wait_clips"):
         c = spec.prepare(np.asarray(clip))
         bucket = groups[c.shape]
         bucket.append(c)

@@ -42,6 +42,7 @@ from ..metric.stats import (
 from ..models.precision import gelu
 from ..models.speech import encoder as enc
 from ..models.speech.config import SpeechEncoderConfig
+from ..runner import profiling
 from .mesh import Mesh
 
 
@@ -157,16 +158,20 @@ def _tp_encoder_layer(cfg, p: nn.ModuleDict, x, key_bias, position_bias, mesh: M
     eps = cfg.layer_norm_eps
 
     def attn(y):
-        return _tp_attention(cfg, p["attention"], y, key_bias, position_bias, mesh, frame_valid)
+        with profiling.stage("model.attention"):
+            return _tp_attention(cfg, p["attention"], y, key_bias, position_bias, mesh,
+                                 frame_valid)
+
+    def ffn(y):
+        with profiling.stage("model.ffn"):
+            return _tp_feed_forward(p["feed_forward"], y, mesh)
 
     if cfg.do_stable_layer_norm:
         x = x + attn(enc._layer_norm(x, p["layer_norm"], eps))
-        x = x + _tp_feed_forward(p["feed_forward"],
-                                 enc._layer_norm(x, p["final_layer_norm"], eps), mesh)
+        x = x + ffn(enc._layer_norm(x, p["final_layer_norm"], eps))
     else:
         x = enc._layer_norm(x + attn(x), p["layer_norm"], eps)
-        x = enc._layer_norm(x + _tp_feed_forward(p["feed_forward"], x, mesh),
-                            p["final_layer_norm"], eps)
+        x = enc._layer_norm(x + ffn(x), p["final_layer_norm"], eps)
     return x
 
 
@@ -176,8 +181,9 @@ def _tp_forward(cfg: SpeechEncoderConfig, shard: enc.SpeechEncoder, audio, num_v
     ``layer``: ``encoder.speech_encoder_forward`` with the row-parallel sums.
     WavLM's position bias comes from the shard's layer-0 table, so it holds
     this rank's heads. Returns (B_local, T_frames, H) and the frame mask."""
-    x, frame_mask, frame_valid, key_bias, position_bias = enc.encoder_inputs(
-        shard, audio, num_valid)
+    with profiling.stage("model.extractor"):
+        x, frame_mask, frame_valid, key_bias, position_bias = enc.encoder_inputs(
+            shard, audio, num_valid)
     for p in shard.encoder["layers"][:layer]:
         x = _tp_encoder_layer(cfg, p, x, key_bias, position_bias, mesh, frame_valid)
     if cfg.do_stable_layer_norm and layer == cfg.num_layers:
@@ -185,12 +191,25 @@ def _tp_forward(cfg: SpeechEncoderConfig, shard: enc.SpeechEncoder, audio, num_v
     return x, frame_mask
 
 
-def _to_device(x, device: torch.device) -> torch.Tensor:
-    """Host arrays go up through pinned memory without blocking the host."""
+def _pinned(x, device: torch.device) -> torch.Tensor:
     x = torch.as_tensor(x)
     if device.type == "cuda" and x.device.type == "cpu":
-        return x.pin_memory().to(device, non_blocking=True)
-    return x.to(device)
+        return x.pin_memory()
+    return x
+
+
+def _to_device(x, device: torch.device) -> torch.Tensor:
+    """Host arrays go up through pinned memory without blocking the host."""
+    return _pinned(x, device).to(device, non_blocking=True)
+
+
+def _step_inputs(device: torch.device, *arrays) -> list[torch.Tensor]:
+    """A step's arrays on ``device`` as ``_to_device`` puts them, with the
+    step's start mark (runner/profiling.py) between the pinning and the
+    first copy."""
+    pinned = [_pinned(x, device) for x in arrays]
+    profiling.step_start(device)
+    return [x.to(device, non_blocking=True) for x in pinned]
 
 
 # Steps memoised per (cfg, mesh, layer), as the JAX package's _EVAL_STEP_CACHE:
@@ -225,13 +244,14 @@ def make_sharded_eval_step(cfg: SpeechEncoderConfig, encoder: enc.SpeechEncoder,
             raise ValueError(f"batch {b} must divide dp={mesh.dp}")
         lo = mesh.dp_rank * (b // mesh.dp)
         rows = slice(lo, lo + b // mesh.dp)
-        frames, frame_mask = _tp_forward(cfg, shard, _to_device(audio[rows], mesh.device),
-                                         _to_device(num_valid[rows], mesh.device), mesh, layer)
-        d = frames.shape[-1]
-        flat = frames.reshape(-1, d).to(torch.float16).float()
-        st = welford_update(welford_init(d, device=flat.device), flat, frame_mask.reshape(-1))
-        st = welford_merge_across(st, mesh.dp_group)
-        mu, cov = welford_finalize(st)
+        audio_d, num_valid_d = _step_inputs(mesh.device, audio[rows], num_valid[rows])
+        frames, frame_mask = _tp_forward(cfg, shard, audio_d, num_valid_d, mesh, layer)
+        with profiling.stage("step.stats"):
+            d = frames.shape[-1]
+            flat = frames.reshape(-1, d).to(torch.float16).float()
+            st = welford_update(welford_init(d, device=flat.device), flat, frame_mask.reshape(-1))
+            st = welford_merge_across(st, mesh.dp_group)
+            mu, cov = welford_finalize(st)
         return mu, cov, st.n
 
     _EVAL_STEP_CACHE[key] = step

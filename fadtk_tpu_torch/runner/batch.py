@@ -59,16 +59,16 @@ def cache_embedding_files_multi(
         primary = group[0]
         primary.ensure_loaded()
         fad = FrechetAudioDistance(primary, audio_load_worker=workers, load_model=False)
-        for f in todo:
-            with profiling.stage("load_audio"):
-                wav = fad.load_audio(f)
-            with profiling.stage("embed"):
-                all_layers = primary.embed_all_layers(np.asarray(wav))
-            for m in group:
-                cache = get_cache_embedding_path(m.cache_name, f)
-                if not cache.exists():
-                    atomic_save_npy(cache, all_layers[m.layer].astype(np.float16))
-    profiling.report()
+        with profiling.traced(f"{primary.weights_name()} {directory}"):
+            for f in todo:
+                with profiling.stage("load_audio"):
+                    wav = fad.load_audio(f)
+                with profiling.stage("embed"):
+                    all_layers = primary.embed_all_layers(np.asarray(wav))
+                for m in group:
+                    cache = get_cache_embedding_path(m.cache_name, f)
+                    if not cache.exists():
+                        atomic_save_npy(cache, all_layers[m.layer].astype(np.float16))
 
     for m in singles:
         log.info(f"Caching embeddings for {directory} using {m.name}")
@@ -107,7 +107,7 @@ def cache_embedding_files(
 
     window = max(1, workers) * 4  # bound decoded-audio RAM while overlapping IO
     done = 0
-    with ThreadPoolExecutor(max_workers=max(1, workers)) as ex:
+    with profiling.traced(ml.name), ThreadPoolExecutor(max_workers=max(1, workers)) as ex:
         for i in range(0, len(files), window):
             if done:
                 log.info(f"[{ml.name}] {done}/{len(files)} files embedded")
@@ -125,4 +125,3 @@ def cache_embedding_files(
                     embd = embd.astype(np.float16)
                 atomic_save_npy(get_cache_embedding_path(ml.cache_name, f), embd)
             done += len(group)
-    profiling.report()

@@ -40,6 +40,7 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from ..utils import get_convert_cache_path, next_multiple, resolve_device
+from . import profiling
 from .fad import convert_audio
 
 #: Pad-bucket grid for miss batches: one batch shape per (src_sr, bucket).
@@ -91,18 +92,23 @@ class ClipLoader:
         source rate) for a miss under the device transport."""
         cache = get_convert_cache_path(self.model.sr, f)
         if cache.exists():
-            return ("hit", self.model.load_wav(cache), None, None)
+            profiling.count("loader.hits")
+            with profiling.stage("loader.decode"):
+                return ("hit", self.model.load_wav(cache), None, None)
+        profiling.count("loader.misses")
         if self.transport == "host":
             return ("hit", self.model.load_wav_array(convert_audio(f, self.model.sr)), None, None)
         from ..audio.decode import decode_audio
 
-        x, src_sr = decode_audio(f)  # (channels, n) float32
-        mono = np.mean(x, axis=0).astype(np.float32)  # parity: fadtk/fad.py:150
-        scaled = mono * 32768.0
-        int16 = None
-        if (scaled.size and scaled.min() >= -32768.0 and scaled.max() <= 32767.0
-                and np.array_equal(scaled, np.rint(scaled))):
-            int16 = scaled.astype(np.int16)
+        with profiling.stage("loader.decode"):
+            x, src_sr = decode_audio(f)  # (channels, n) float32
+            mono = np.mean(x, axis=0).astype(np.float32)  # parity: fadtk/fad.py:150
+        with profiling.stage("loader.quantise"):
+            scaled = mono * 32768.0
+            int16 = None
+            if (scaled.size and scaled.min() >= -32768.0 and scaled.max() <= 32767.0
+                    and np.array_equal(scaled, np.rint(scaled))):
+                int16 = scaled.astype(np.int16)
         return ("miss", mono, int16, int(src_sr))
 
     def _convert_misses(self, misses: list[tuple[_Miss, int]]) -> dict[int, np.ndarray]:
@@ -140,14 +146,24 @@ class ClipLoader:
     def iter_clips(self, files: Sequence[Path]) -> Iterator[np.ndarray]:
         """Model-ready arrays in file order. The threads decode a window of
         files at a time, ahead of the clip the caller is consuming; under the
-        device transport the window's misses convert in one pass."""
+        device transport the window's misses convert in one pass. Tracing
+        (runner/profiling.py) is decided afresh at each window, on the
+        caller's thread."""
         window = max(4 * self.workers, 8)
         with ThreadPoolExecutor(max_workers=max(1, self.workers)) as ex:
             for start in range(0, len(files), window):
-                probed = list(ex.map(self._probe, files[start : start + window]))
-                misses = [(_Miss(i, mono, int16), src_sr)
-                          for i, (kind, mono, int16, src_sr) in enumerate(probed)
-                          if kind == "miss"]
-                converted = self._convert_misses(misses) if misses else {}
+                profiling.refresh()
+                with profiling.stage("loader.window"):
+                    probed = list(ex.map(self._probe, files[start : start + window]))
+                    misses = [(_Miss(i, mono, int16), src_sr)
+                              for i, (kind, mono, int16, src_sr) in enumerate(probed)
+                              if kind == "miss"]
+                    converted = {}
+                    if misses:
+                        with profiling.stage("loader.device_convert"):
+                            converted = self._convert_misses(misses)
                 for i, (kind, payload, _, _) in enumerate(probed):
-                    yield payload if kind == "hit" else self.model.load_wav_array(converted[i])
+                    clip = payload if kind == "hit" else self.model.load_wav_array(converted[i])
+                    profiling.count("loader.files")
+                    profiling.count("loader.audio_s", clip.shape[-1] / self.model.sr)
+                    yield clip

@@ -37,6 +37,7 @@ from ..models.speech.family import BUCKET_SECONDS, SpeechEmbeddingModel
 from ..parallel.mesh import Mesh, make_mesh
 from ..parallel.tp import make_sharded_eval_step, shard_speech_params
 from ..utils import PathLike, dataset_files, next_multiple
+from . import profiling
 from .convert import ClipLoader
 from .fad import FrechetAudioDistance
 from .resume import open_checkpoint, pipeline_ckpt_path
@@ -68,7 +69,14 @@ def dataset_stats_device(
 
     The speech family takes the bucketed (dp, tp) step; every other family
     its ``dp_spec`` or ``dp_whole_spec`` (``_dataset_stats_device_chunked``).
+    Under tracing (runner/profiling.py) the pass records its spans and
+    counters; ``FADTK_TPU_TRACE`` also writes its trace.
     """
+    with profiling.traced("dataset_stats_device"):
+        return _dataset_stats_device(model, files, mesh, batch, workers, checkpoint)
+
+
+def _dataset_stats_device(model, files, mesh, batch, workers, checkpoint):
     if isinstance(files, (str, Path)):
         if checkpoint is None and Path(files).is_dir():
             checkpoint = pipeline_ckpt_path(files, model)
@@ -104,39 +112,50 @@ def dataset_stats_device(
     if host_state is not None:
         state = tuple(torch.from_numpy(x).to(mesh.device) for x in host_state)
     clips_iter = loader.iter_clips(files[files_done:])
+    profiling.steps_begin(mesh.device)
     with torch.inference_mode():
         while True:
-            clips = [
-                c if c.shape[0] <= model.limit else c[: model.limit]
-                for c in islice(clips_iter, batch)
-            ]
+            with profiling.stage("pipeline.wait_clips"):
+                clips = [
+                    c if c.shape[0] <= model.limit else c[: model.limit]
+                    for c in islice(clips_iter, batch)
+                ]
             if not clips:
                 break
-            bucket = next_multiple(max(c.shape[0] for c in clips), BUCKET_SECONDS * model.sr)
-            # Pad rows carry zero audio with num_valid = 1: they yield no
-            # valid frame, and 1 keeps the normalisation's division finite.
-            audio = np.zeros((batch, bucket), np.float32)
-            num_valid = np.ones((batch,), np.int32)
-            for j, c in enumerate(clips):
-                audio[j, : c.shape[0]] = c
-                num_valid[j] = c.shape[0]
-            mu_b, cov_b, n_b = step(shard, audio, num_valid)
+            with profiling.stage("pipeline.pad"):
+                bucket = next_multiple(max(c.shape[0] for c in clips), BUCKET_SECONDS * model.sr)
+                # Pad rows carry zero audio with num_valid = 1: they yield no
+                # valid frame, and 1 keeps the normalisation's division finite.
+                audio = np.zeros((batch, bucket), np.float32)
+                num_valid = np.ones((batch,), np.int32)
+                for j, c in enumerate(clips):
+                    audio[j, : c.shape[0]] = c
+                    num_valid[j] = c.shape[0]
+            # num_valid marks one sample of each pad row valid
+            profiling.count_batch(batch, batch - len(clips), bucket, int(num_valid.sum()))
+            with profiling.stage("pipeline.step"):
+                mu_b, cov_b, n_b = step(shard, audio, num_valid)
             # Zero-count partials fold in exactly (the max(n, 1) guards).
-            state = merge_partial_stats_device(state, mu_b, cov_b, n_b, b_is_cov=True)
+            with profiling.stage("pipeline.merge"):
+                state = merge_partial_stats_device(state, mu_b, cov_b, n_b, b_is_cov=True)
+            profiling.step_end(mesh.device)
             files_done += len(clips)
             if ckpt is not None and ckpt.due(files_done):
                 # One host fetch syncs the chain up to here; state covers
                 # files[:files_done] exactly.
-                ckpt.save(tuple(x.cpu().numpy() for x in state), files_done)
+                with profiling.stage("pipeline.checkpoint"):
+                    ckpt.save(tuple(x.cpu().numpy() for x in state), files_done)
 
     if ckpt is not None:
         ckpt.finalize()
     if state is None:
         d = model.num_features
         return np.zeros(d), np.zeros((d, d)), 0
-    mu = state[0].cpu().numpy().astype(np.float64)
-    s = state[1].cpu().numpy().astype(np.float64)
-    n = int(state[2].item())
+    with profiling.stage("pipeline.fetch"):
+        mu = state[0].cpu().numpy().astype(np.float64)
+        s = state[1].cpu().numpy().astype(np.float64)
+        n = int(state[2].item())
+    profiling.read_steps()
     if n < 2:
         return mu, np.zeros_like(s), n
     return mu, s / (n - 1), n

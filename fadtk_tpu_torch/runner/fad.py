@@ -74,10 +74,15 @@ def convert_audio(f: PathLike, sr: int) -> np.ndarray:
     from ..audio.decode import decode_audio
     from ..audio.wavio import float_to_int16
     from ..dsp.resample import resample_kaiser
+    from .profiling import stage
 
-    x, sr_orig = decode_audio(f)  # (channels, n) float32
-    mono = np.mean(x, axis=0)  # parity: fadtk/fad.py:150
-    return float_to_int16(resample_kaiser(mono, sr_orig, sr))
+    with stage("loader.decode"):
+        x, sr_orig = decode_audio(f)  # (channels, n) float32
+        mono = np.mean(x, axis=0)  # parity: fadtk/fad.py:150
+    with stage("loader.resample"):
+        y = resample_kaiser(mono, sr_orig, sr)
+    with stage("loader.quantise"):
+        return float_to_int16(y)
 
 
 class FrechetAudioDistance:
