@@ -52,6 +52,49 @@ def read_wav_int16(path: PathLike) -> tuple[np.ndarray, int]:
     return x, sample_rate
 
 
+#: Format tags of the sample formats ``wav_frames`` counts: PCM and IEEE float.
+_PCM, _FLOAT, _EXTENSIBLE = 1, 3, 0xFFFE
+
+
+def wav_frames(path: PathLike) -> tuple[int, int] | None:
+    """(frames, sample_rate) of a PCM or float RIFF/WAVE file, read from its
+    chunk headers alone (no sample is read); None for any other file.
+
+    Frames count as ``read_wav_int16`` counts them: the data chunk's bytes
+    present in the file (a chunk cut short by the file's end counts what is
+    there), whole blocks of ``block_align``; the last data chunk wins.
+    """
+    try:
+        with open(path, "rb") as f:
+            head = f.read(12)
+            if len(head) < 12 or head[:4] != b"RIFF" or head[8:12] != b"WAVE":
+                return None
+            size_left = f.seek(0, 2) - 12
+            pos = 12
+            fmt = None
+            data_bytes = None
+            while size_left >= 8:
+                f.seek(pos)
+                cid, size = struct.unpack("<4sI", f.read(8))
+                if cid == b"fmt ":
+                    fmt = f.read(min(size, 26))
+                elif cid == b"data":
+                    data_bytes = min(size, size_left - 8)
+                step = 8 + size + (size & 1)
+                pos += step
+                size_left -= step
+    except OSError:
+        return None
+    if fmt is None or len(fmt) < 16 or data_bytes is None:
+        return None
+    tag, _channels, sample_rate, _byte_rate, block_align, _bits = struct.unpack("<HHIIHH", fmt[:16])
+    if tag == _EXTENSIBLE and len(fmt) >= 26:
+        tag = struct.unpack("<H", fmt[24:26])[0]  # the sub-format GUID's first field
+    if tag not in (_PCM, _FLOAT) or block_align == 0 or sample_rate == 0:
+        return None
+    return data_bytes // block_align, sample_rate
+
+
 def write_wav_int16(path: PathLike, data: np.ndarray, sample_rate: int) -> None:
     """Write int16 PCM data of shape (n,) or (n, channels) as a WAV file."""
     data = np.asarray(data)

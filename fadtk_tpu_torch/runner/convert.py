@@ -54,6 +54,22 @@ def rows_for_bucket(bucket: int, max_rows: int = 8) -> int:
     return max(1, min(max_rows, MAX_BATCH_SAMPLES // max(bucket, 1)))
 
 
+def clip_samples(model, f: Path) -> int | None:
+    """Samples of the clip ``ClipLoader`` yields for ``f``, from WAV headers
+    alone: the convert cache's wav where it exists (it is read as is), else
+    the source's frames resampled to the model's rate; None where no header
+    tells (compressed formats)."""
+    from ..audio.wavio import wav_frames
+    from ..dsp.resample import resampled_length
+
+    cache = get_convert_cache_path(model.sr, f)
+    if cache.exists():
+        probe = wav_frames(cache)
+        return None if probe is None else probe[0]
+    probe = wav_frames(f)
+    return None if probe is None else resampled_length(probe[0], probe[1], model.sr)
+
+
 class _Miss:
     __slots__ = ("index", "mono", "int16", "n")
 
@@ -144,7 +160,11 @@ class ClipLoader:
         return out
 
     def iter_clips(self, files: Sequence[Path]) -> Iterator[np.ndarray]:
-        """Model-ready arrays in file order. The threads decode a window of
+        """Model-ready arrays in the order of ``files``. The device pipeline's
+        speech path passes its processing order (files sorted by padding
+        bucket, runner/device_pipeline.py::processing_order), and its
+        checkpoint's fingerprint and cursor are over that order, so a resume
+        hands this the same list's tail. The threads decode a window of
         files at a time, ahead of the clip the caller is consuming; under the
         device transport the window's misses convert in one pass. Tracing
         (runner/profiling.py) is decided afresh at each window, on the

@@ -10,7 +10,10 @@ and at checkpoints (runner/resume.py), and finishes ``s / (n - 1)`` in
 float64. Two device paths cover the zoo:
 
 - the speech family (w2v2, HuBERT, WavLM, MERT): one padding bucket per
-  batch through the (dp, tp) step of parallel/tp.py;
+  batch through the (dp, tp) step of parallel/tp.py. The pass processes its
+  files stably sorted by padding bucket, longest first, with lengths read
+  from WAV headers (``processing_order``), so a batch holds clips of like
+  length; a file list of one bucket keeps its order;
 - every other family through the generic pipelines of parallel/dp.py, via
   the model's ``dp_spec()`` (fixed-window chunks: VGGish, CLAP, CDPAM, DAC,
   EnCodec-48k, Whisper) or ``dp_whole_spec()`` (whole clips at exact length,
@@ -38,7 +41,7 @@ from ..parallel.mesh import Mesh, make_mesh
 from ..parallel.tp import make_sharded_eval_step, shard_speech_params
 from ..utils import PathLike, dataset_files, next_multiple
 from . import profiling
-from .convert import ClipLoader
+from .convert import ClipLoader, clip_samples
 from .fad import FrechetAudioDistance
 from .resume import open_checkpoint, pipeline_ckpt_path
 
@@ -58,14 +61,24 @@ def dataset_stats_device(
     and must divide by dp; every rank of the job walks the same files and
     embeds its dp slice of each batch.
 
+    On the speech path the files are processed in ``processing_order``:
+    stably sorted by the padding bucket their header length falls in,
+    longest first, files without a WAV header last in their given order.
+    The lengths only order the pass; each batch is padded to its decoded
+    clips, so a wrong or missing header costs padding, never correctness.
+
     ``checkpoint``: path for crash-resume snapshots of the running (mu, M2, n)
     + file cursor (runner/resume.py). When ``files`` is a dataset directory,
     it defaults to ``{dir}/stats/{model}/pipeline_ckpt.npz``; pass a path to
     override, or leave None (explicit file list) / set FADTK_TPU_CKPT=0 to
     disable. On the speech path a resume with the same ``batch`` is
     bit-identical to an uninterrupted run; the chunked paths resume equal to
-    float32 accumulation (the batch packing differs). Under several ranks
-    only rank 0 writes it.
+    float32 accumulation (the batch packing differs). The checkpoint's
+    fingerprint is taken over the processing order and its cursor counts
+    files of that order; a resume probes the same headers and gets the same
+    order, and a checkpoint of another order is ignored. Under several ranks
+    only rank 0 writes it (every rank probes the same headers, so all agree
+    on the order).
 
     The speech family takes the bucketed (dp, tp) step; every other family
     its ``dp_spec`` or ``dp_whole_spec`` (``_dataset_stats_device_chunked``).
@@ -74,6 +87,31 @@ def dataset_stats_device(
     """
     with profiling.traced("dataset_stats_device"):
         return _dataset_stats_device(model, files, mesh, batch, workers, checkpoint)
+
+
+def _bucket(model: SpeechEmbeddingModel, n: int) -> int:
+    """The padded length of a speech batch whose longest clip has ``n``
+    samples."""
+    return next_multiple(min(n, model.limit), int(BUCKET_SECONDS * model.sr))
+
+
+def processing_order(model: SpeechEmbeddingModel, files: Sequence[Path]) -> list[Path]:
+    """``files`` in the speech path's processing order: stably sorted by
+    the padding bucket of their clip's length (``convert.clip_samples``, WAV
+    headers only), longest first. Each batch then pads its clips to a bucket
+    near their own length. Longest first, the card has the most work queued
+    behind each loader window after the first, and the largest batch, which
+    sets the pass's peak memory, comes first. Files of one bucket, and files
+    no header measures (put after all others), keep their order; a list of
+    one bucket is returned as it is. Counts ``pipeline.order_probed`` (files
+    measured) and ``pipeline.order_moved`` (files at another position than
+    given)."""
+    lengths = [clip_samples(model, f) for f in files]
+    order = sorted(range(len(files)), key=lambda i: (
+        (1, 0) if lengths[i] is None else (0, -_bucket(model, lengths[i]))))
+    profiling.count("pipeline.order_probed", sum(n is not None for n in lengths))
+    profiling.count("pipeline.order_moved", sum(i != j for j, i in enumerate(order)))
+    return [files[i] for i in order]
 
 
 def _dataset_stats_device(model, files, mesh, batch, workers, checkpoint):
@@ -100,7 +138,9 @@ def _dataset_stats_device(model, files, mesh, batch, workers, checkpoint):
 
     # Crash-resume: snapshots happen only at batch boundaries, which here are
     # file boundaries (one clip = one row), so a resumed run with the same
-    # ``batch`` re-batches identically.
+    # ``batch`` re-batches identically. The fingerprint and the cursor are
+    # over the processing order.
+    files = processing_order(model, files)
     ckpt, host_state, files_done = open_checkpoint(checkpoint, model, files)
     if ckpt is not None and mesh.rank != 0:
         ckpt = None  # every rank holds the same state; rank 0 writes it
@@ -123,7 +163,7 @@ def _dataset_stats_device(model, files, mesh, batch, workers, checkpoint):
             if not clips:
                 break
             with profiling.stage("pipeline.pad"):
-                bucket = next_multiple(max(c.shape[0] for c in clips), BUCKET_SECONDS * model.sr)
+                bucket = _bucket(model, max(c.shape[0] for c in clips))
                 # Pad rows carry zero audio with num_valid = 1: they yield no
                 # valid frame, and 1 keeps the normalisation's division finite.
                 audio = np.zeros((batch, bucket), np.float32)

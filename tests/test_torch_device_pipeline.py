@@ -8,6 +8,9 @@
 - crash-resume: a run interrupted after its first checkpoint resumes to
   statistics bit-identical to an uninterrupted run, and checkpoints written
   by either package open in the other;
+- the processing order: clips of one bucket run in file order, bit for bit
+  as a pass that takes the files as given; with the bucket cut small the
+  pass reorders them, still equals the cached path and resumes in its order;
 - the in-memory clip loader equals the cached path's ``load_audio``;
 - the CLI flags.
 
@@ -29,6 +32,7 @@ from fadtk_tpu_torch.audio.wavio import float_to_int16, write_wav_int16
 from fadtk_tpu_torch.models.speech.config import SpeechEncoderConfig
 from fadtk_tpu_torch.models.speech.family import SpeechEmbeddingModel
 from fadtk_tpu_torch.runner import convert
+from fadtk_tpu_torch.runner import device_pipeline as dpipe
 from fadtk_tpu_torch.runner.device_pipeline import dataset_stats_device
 from fadtk_tpu_torch.runner.resume import StatsCheckpoint, open_checkpoint, pipeline_ckpt_path
 
@@ -250,6 +254,69 @@ def test_resume_bit_identical(data, monkeypatch):
         mu, cov, n = dataset_stats_device(model, d, batch=2, workers=1)
     assert [f.name for f in seen] == ["c2.wav", "c3.wav", "c4.wav"]  # resumed at file 2
     assert not ckpt_path.exists(), "success deletes the checkpoint"
+    assert n == n_ref
+    np.testing.assert_array_equal(mu, mu_ref)
+    np.testing.assert_array_equal(cov, cov_ref)
+    _no_caches(d)
+
+
+def test_one_bucket_runs_in_the_given_order_bit_for_bit(data, monkeypatch):
+    """The fixture's clips share one 10 s bucket: the processing order is the
+    file order, and the statistics equal, bit for bit, a pass that takes the
+    files as given (the pipeline before it ordered them)."""
+    model, d = data["model"], data["base"]
+    files = sorted(d.glob("*.*"))
+    assert dpipe.processing_order(model, files) == files
+    monkeypatch.setenv("FADTK_TPU_CKPT", "0")
+    mu, cov, n = dataset_stats_device(model, d, batch=2, workers=1)
+    monkeypatch.setattr(dpipe, "processing_order", lambda model, files: list(files))
+    mu0, cov0, n0 = dataset_stats_device(model, d, batch=2, workers=1)
+    assert n == n0
+    np.testing.assert_array_equal(mu, mu0)
+    np.testing.assert_array_equal(cov, cov0)
+
+
+def test_bucket_order_matches_cached_path_and_resumes_in_its_order(data, monkeypatch):
+    """With the bucket cut to 0.125 s the fixture's 0.3-1.2 s clips span
+    three buckets and the pass reorders them. Its statistics still equal the cached
+    path's, and a run interrupted after its first checkpoint resumes to
+    bit-identical statistics: the fingerprint is over the processing order
+    and the cursor counts files of it."""
+    model, d = data["model"], data["base"]
+    monkeypatch.setattr(dpipe, "BUCKET_SECONDS", 0.125)
+    files = sorted(d.glob("*.*"))
+    order = dpipe.processing_order(model, files)
+    assert [f.name for f in order] == ["c2.wav", "c3.wav", "c0.wav", "c1.wav", "c4.wav"]
+    monkeypatch.setenv("FADTK_TPU_CKPT", "0")
+    mu_ref, cov_ref, n_ref = dataset_stats_device(model, d, batch=2, workers=1)
+    mu_c, cov_c, n_c = data["cached"]
+    assert n_ref == n_c
+    np.testing.assert_allclose(mu_ref, mu_c, atol=MU_ATOL, rtol=0)
+    np.testing.assert_allclose(cov_ref, cov_c, atol=COV_ATOL, rtol=0)
+
+    monkeypatch.delenv("FADTK_TPU_CKPT")
+    monkeypatch.setenv("FADTK_TPU_CKPT_FILES", "1")
+    monkeypatch.setenv("FADTK_TPU_CKPT_SECONDS", "0")
+    ckpt_path = pipeline_ckpt_path(d, model)
+    orig = convert.ClipLoader.iter_clips
+    with monkeypatch.context() as m:
+        m.setattr(convert.ClipLoader, "iter_clips",
+                  lambda self, files: _CrashAfter(orig(self, files), 3))
+        with pytest.raises(_CrashAfter.Crash):
+            dataset_stats_device(model, d, batch=2, workers=1)
+    fp = StatsCheckpoint.fingerprint_of(model, order)
+    assert StatsCheckpoint(ckpt_path, fp).load()[1] == 2  # c2 and c3
+    # the file order's fingerprint does not open it
+    fp_files = StatsCheckpoint.fingerprint_of(model, files)
+    assert StatsCheckpoint(ckpt_path, fp_files).load() == (None, 0)
+
+    seen = []
+    with monkeypatch.context() as m:
+        m.setattr(convert.ClipLoader, "iter_clips",
+                  lambda self, files: seen.extend(files) or orig(self, files))
+        mu, cov, n = dataset_stats_device(model, d, batch=2, workers=1)
+    assert [f.name for f in seen] == ["c0.wav", "c1.wav", "c4.wav"]  # order[2:]
+    assert not ckpt_path.exists()
     assert n == n_ref
     np.testing.assert_array_equal(mu, mu_ref)
     np.testing.assert_array_equal(cov, cov_ref)
