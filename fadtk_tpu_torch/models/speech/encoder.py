@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...runner import profiling
 from ..precision import gelu
 from .config import SpeechEncoderConfig
 
@@ -326,45 +327,76 @@ def wavlm_position_bias(cfg: SpeechEncoderConfig, rel_attn_embed: torch.Tensor, 
     """(H, T, T) un-gated relative position bias from the layer-0 table, in
     the table's dtype, contiguous."""
     buckets = _bucket_index(cfg.num_buckets, cfg.max_bucket_distance, t, rel_attn_embed.device)
-    return rel_attn_embed[buckets].permute(2, 0, 1).contiguous()  # (T, T, H) -> (H, T, T)
+    bias = rel_attn_embed[buckets].permute(2, 0, 1).contiguous()  # (T, T, H) -> (H, T, T)
+    profiling.count("model.position_bias_bytes", bias.numel() * bias.element_size())
+    return bias
+
+
+def wavlm_gated_bias(cfg: SpeechEncoderConfig, p: Attention, x, position_bias, key_bias, *,
+                     first_head: int = 0, dense: bool = True):
+    """WavLM's per-query, per-head gate on the relative position bias (HF
+    WavLMAttention), for the heads that ``p`` holds from ``first_head`` on
+    (all of them, or a tensor-parallel shard's).
+
+    The gate is computed in the compute dtype from the *unprojected* per-head
+    hidden states of ``x`` (B, T, H_all * head_dim): proj -> (..., 2, 4).sum(-1)
+    -> sigmoid -> a * (b * const - 1) + 2. Returns it as (B, T, Hl), the
+    layout the flash kernels read, and with ``dense`` the additive attention
+    bias ``key_bias + gate ⊙ position_bias``, (B, Hl, T, T), of the plain
+    path; without, None (the kernels add gate ⊙ bias per tile and build no
+    dense term). Traced as the span ``model.gated_bias`` and the counter
+    ``model.gated_bias_bytes`` (the dense bias's bytes, from its shape).
+    """
+    with profiling.stage("model.gated_bias"):
+        gate, bias = _wavlm_gate_and_bias(cfg, p, x, position_bias, key_bias, first_head, dense)
+    if bias is not None:
+        profiling.count("model.gated_bias_bytes", bias.numel() * bias.element_size())
+    return gate, bias
+
+
+def _wavlm_gate_and_bias(cfg, p: Attention, x, position_bias, key_bias, first_head: int,
+                         dense: bool):
+    """The work of ``wavlm_gated_bias``, launched outside any range of the
+    program's own, so that a profiler range around this function holds its
+    kernels (a kernel belongs to the innermost range it was launched in)."""
+    b, t, _ = x.shape
+    heads = p.gru_rel_pos_const.shape[0]
+    hs = x.reshape(b, t, -1, cfg.head_dim)[:, :, first_head:first_head + heads]
+    proj = p.gru_rel_pos_linear(hs).reshape(b, t, heads, 2, 4).sum(-1)
+    gates = torch.sigmoid(proj)
+    const = p.gru_rel_pos_const.reshape(1, 1, heads)
+    gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # (B, T, Hl)
+    if not dense:
+        return gate, None
+    return gate, key_bias + gate.transpose(1, 2)[..., None] * position_bias[None]
 
 
 def wavlm_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, position_bias,
                     frame_valid=None):
-    """WavLM gated relative position bias attention (HF WavLMAttention).
+    """WavLM gated relative position bias attention (HF WavLMAttention), the
+    gate and bias from ``wavlm_gated_bias``.
 
-    The gate is computed in the compute dtype from the *unprojected* per-head
-    hidden states: proj -> (..., 2, 4).sum(-1) -> sigmoid -> a * (b * const - 1)
-    + 2, in the (B, T, H) layout the kernel reads (no transposes on the bf16
-    route). bf16 takes the flash kernel, which adds gate ⊙ position_bias per
-    tile without building the dense (B, H, T, T) term; gate and bias are cast
-    to float32 for it. float32 always takes the plain dense path, whatever
+    bf16 takes the flash kernel, which adds gate ⊙ position_bias per tile
+    without building the dense (B, H, T, T) term; gate and bias are cast to
+    float32 for it. float32 always takes the plain dense path, whatever
     ``FADTK_TPU_FLASH_F32`` says, as the JAX package does (its routing call
     passes no length).
     """
-    b, t, _ = x.shape
-    hs = x.reshape(b, t, cfg.num_heads, cfg.head_dim)
-    proj = p.gru_rel_pos_linear(hs).reshape(b, t, cfg.num_heads, 2, 4).sum(-1)
-    gates = torch.sigmoid(proj)
-    gate_a, gate_b = gates[..., 0], gates[..., 1]  # (B, T, H)
-    const = p.gru_rel_pos_const.reshape(1, 1, cfg.num_heads)
-    gate_bth = gate_a * (gate_b * const - 1.0) + 2.0  # (B, T, H)
-
     q = p.q_proj(x)
     k = p.k_proj(x)
     v = p.v_proj(x)
-    if use_flash_attention(x.dtype, frame_valid, None, x.device):  # no length: bf16 only
+    flash = use_flash_attention(x.dtype, frame_valid, None, x.device)  # no length: bf16 only
+    gate, bias = wavlm_gated_bias(cfg, p, x, position_bias, key_bias, dense=not flash)
+    if flash:
         from ...ops.flash_attention import flash_attention_packed
 
         out = flash_attention_packed(
-            q, k, v, frame_valid, position_bias.float(), gate_bth.float().contiguous(),
+            q, k, v, frame_valid, position_bias.float(), gate.float().contiguous(),
             num_heads=cfg.num_heads,
         )
     else:
         qh, kh, vh = (_split_heads(y, cfg.num_heads) for y in (q, k, v))
-        gate = gate_bth.transpose(1, 2)  # (B, H, T)
-        gated_bias = gate[..., None] * position_bias[None]  # (B, H, T, T)
-        out = _attention_core(qh, kh, vh, gated_bias + key_bias)
+        out = _attention_core(qh, kh, vh, bias)
     return p.out_proj(out)
 
 

@@ -107,41 +107,33 @@ def _tp_attention(cfg, p: enc.Attention, x, key_bias, position_bias, mesh: Mesh,
         b, s, _ = t.shape
         return t.view(b, s, local_heads, cfg.head_dim).transpose(1, 2)
 
-    gate = None
-    if cfg.attention_type == "wavlm":
-        # Per-head gate from the *unprojected* hidden states: this rank's
-        # heads of the replicated activations, in the (B, T, H) layout of
-        # encoder.wavlm_attention; only the small gate is viewed as (B, Hl, T).
-        b, t, _ = x.shape
-        heads_global = x.shape[-1] // cfg.head_dim
-        lo = mesh.tp_rank * local_heads
-        xh = x.reshape(b, t, heads_global, cfg.head_dim)[:, :, lo:lo + local_heads]
-        proj = p.gru_rel_pos_linear(xh).reshape(b, t, local_heads, 2, 4).sum(-1)
-        gates = torch.sigmoid(proj)
-        const = p.gru_rel_pos_const.reshape(1, 1, -1)  # (1, 1, Hl) shard-local
-        gate_bth = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # (B, T, Hl)
-        gate = gate_bth.transpose(1, 2)  # (B, Hl, T), a view
-
     # f32 long-bucket flash applies only to the unbiased (standard) form;
     # the WavLM factorized bias keeps the plain path in f32 (encoder.py).
-    if enc.use_flash_attention(x.dtype, frame_valid, x.shape[1] if gate is None else None,
-                               x.device):
+    wavlm = cfg.attention_type == "wavlm"
+    flash = enc.use_flash_attention(x.dtype, frame_valid, None if wavlm else x.shape[1],
+                                    x.device)
+    bias = key_bias
+    if wavlm:
+        # This rank's heads of the replicated activations; through the
+        # module attribute, so that a caller can wrap it.
+        gate, bias = enc.wavlm_gated_bias(cfg, p, x, position_bias, key_bias,
+                                          first_head=mesh.tp_rank * local_heads,
+                                          dense=not flash)
+    if flash:
         from ..ops.flash_attention import flash_attention, flash_attention_packed
 
-        if gate is None:
+        if not wavlm:
             # Packed-heads kernel on the shard-local projection layout.
             out = flash_attention_packed(q, k, v, frame_valid, num_heads=local_heads)
         else:
             # WavLM's bias streams factorized: local-head gate x local-head
             # position-bias slice, through the head-split views in place.
             o = flash_attention(split(q), split(k), split(v), frame_valid,
-                                position_bias=position_bias.float(), gate=gate.float())
+                                position_bias=position_bias.float(),
+                                gate=gate.transpose(1, 2).float())
             b, h, t, d = o.shape
             out = o.transpose(1, 2).reshape(b, t, h * d)
     else:
-        bias = key_bias
-        if gate is not None:
-            bias = bias + gate[..., None] * position_bias[None]
         out = enc._attention_core(split(q), split(k), split(v), bias)
     out = _all_reduce(F.linear(out, p.out_proj.weight), mesh.tp_group)
     return out + p.out_proj.bias
