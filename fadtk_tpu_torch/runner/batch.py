@@ -5,12 +5,12 @@ the dataset, skip already-cached files, compute the rest.
 
 As in ``fadtk_tpu.runner.batch``, one process owns the device; parallelism
 comes from batched device inference, and host decode/resample runs on a small
-thread pool, a window of files at a time, ahead of the embed step.
+thread pool (``convert.DecodePool``, whose threads share the cores' BLAS), a
+window of files at a time, ahead of the embed step.
 """
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Sequence, Union
 
@@ -19,6 +19,7 @@ import numpy as np
 from ..models.base import EmbeddingModel
 from ..utils import PathLike, dataset_files, get_cache_embedding_path, log
 from . import profiling
+from .convert import DecodePool
 from .fad import FrechetAudioDistance, atomic_save_npy
 
 
@@ -107,11 +108,11 @@ def cache_embedding_files(
 
     window = max(1, workers) * 4  # bound decoded-audio RAM while overlapping IO
     done = 0
-    with profiling.traced(ml.name), ThreadPoolExecutor(max_workers=max(1, workers)) as ex:
+    with profiling.traced(ml.name), DecodePool(workers) as pool:
         for i in range(0, len(files), window):
             if done:
                 log.info(f"[{ml.name}] {done}/{len(files)} files embedded")
-            group = list(ex.map(prepare, files[i : i + window]))
+            group = pool.map(prepare, files[i : i + window])
             todo = [
                 (f, wav) for f, wav in group
                 if not get_cache_embedding_path(ml.cache_name, f).exists()

@@ -28,14 +28,25 @@ resampling a clip zero-padded to a bucket equals resampling the exact-length
 clip on the prefix, bit for bit (the polyphase kernel zero-pads the tail
 either way), and rounding in float32 equals the cache writer's float64
 ``np.rint`` for all |x| < 2^15.
+
+The host decode threads, here and in the cached path's ``runner/batch.py``,
+are a ``DecodePool``: while its threads run a window, numpy's OpenBLAS runs
+``max(1, cores // workers)`` threads wide, so that the threads' resample
+GEMMs do not each fan out over every core on top of one another. The host
+convert's int16 depends on that width (by one LSB, on a few samples in ten
+thousand), so both pools decode under the one rule and the loader's clips
+stay bit-identical to the cache the cached path writes.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
+from contextlib import contextmanager, nullcontext
+from functools import lru_cache
 from pathlib import Path
-from typing import Iterator, Sequence
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
 
@@ -68,6 +79,99 @@ def clip_samples(model, f: Path) -> int | None:
         return None if probe is None else probe[0]
     probe = wav_frames(f)
     return None if probe is None else resampled_length(probe[0], probe[1], model.sr)
+
+
+def usable_cores() -> int:
+    """The cores this process may run on (its CPU affinity)."""
+    return len(os.sched_getaffinity(0))
+
+
+class OpenBLASWidth:
+    """The thread count of one loaded OpenBLAS library, read and set through
+    its exported ``openblas_get_num_threads`` / ``openblas_set_num_threads``.
+
+    The count is the process's: OpenBLAS's ``openblas_set_num_threads_local``
+    (0.3.27, 0.3.30) sets it for every thread as well and only returns the
+    previous count. So ``limit`` holds a count for a stretch of time and
+    puts the old one back."""
+
+    def __init__(self, get: Callable[[], int], set_: Callable[[int], None]):
+        self.get = get
+        self._set = set_
+
+    @contextmanager
+    def limit(self, width: int):
+        """At most ``width`` threads inside the block, and never more than
+        the count in force before it; yields the count set."""
+        saved = self.get()
+        width = min(width, saved)
+        self._set(width)
+        try:
+            yield width
+        finally:
+            self._set(saved)
+
+
+@lru_cache(maxsize=1)
+def numpy_openblas() -> OpenBLASWidth | None:
+    """numpy's OpenBLAS, found among the libraries mapped into the process
+    (numpy's own copy first where scipy maps another), or None where numpy
+    runs on another BLAS."""
+    try:
+        with open("/proc/self/maps") as fh:  # the path is a line's sixth field
+            paths = {f[5].strip() for f in (line.split(None, 5) for line in fh)
+                     if len(f) == 6 and "openblas" in f[5].rsplit("/", 1)[-1]}
+    except OSError:
+        return None
+    for path in sorted(paths, key=lambda p: ("numpy" not in p, p)):
+        lib = ctypes.CDLL(path)
+        # scipy-openblas64 (numpy's wheels), scipy-openblas32, openblas64, openblas
+        for prefix, suffix in (("scipy_", "64_"), ("scipy_", ""), ("", "64_"), ("", "")):
+            get = getattr(lib, f"{prefix}openblas_get_num_threads{suffix}", None)
+            set_ = getattr(lib, f"{prefix}openblas_set_num_threads{suffix}", None)
+            if get is not None and set_ is not None:
+                get.argtypes, get.restype = [], ctypes.c_int
+                set_.argtypes, set_.restype = [ctypes.c_int], None
+                return OpenBLASWidth(get, set_)
+    return None
+
+
+class DecodePool:
+    """The host decode threads: ``workers`` threads that run a window of
+    files at a time, while numpy's BLAS runs ``max(1, usable_cores() //
+    workers)`` threads wide (never wider than it was). One thread keeps
+    every core; eight on eight cores run single-threaded GEMMs side by side.
+    The width holds only while a window runs, the calling thread waiting on
+    it, so the caller's own BLAS keeps its width.
+
+    Under tracing each window adds 1 to ``loader.windows`` and its width to
+    ``loader.blas_threads``. Where numpy has no OpenBLAS the width is left
+    as it is and counted as the cores usable, a BLAS pool's default."""
+
+    def __init__(self, workers: int):
+        self.workers = max(1, workers)
+        self.width = max(1, usable_cores() // self.workers)
+        self._blas = numpy_openblas()
+        self._ex = ThreadPoolExecutor(max_workers=self.workers)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._ex.shutdown()
+        return False
+
+    def map(self, fn, items) -> list:
+        """``fn`` over ``items`` on the threads, the results in order. Every
+        item has run by the time it returns or raises."""
+        limit = (self._blas.limit(self.width) if self._blas is not None
+                 else nullcontext(usable_cores()))
+        with limit as width:
+            futures = [self._ex.submit(fn, item) for item in items]
+            wait(futures)
+        profiling.count("loader.windows")
+        profiling.count("loader.blas_threads", width)
+        return [f.result() for f in futures]
 
 
 class _Miss:
@@ -170,11 +274,11 @@ class ClipLoader:
         (runner/profiling.py) is decided afresh at each window, on the
         caller's thread."""
         window = max(4 * self.workers, 8)
-        with ThreadPoolExecutor(max_workers=max(1, self.workers)) as ex:
+        with DecodePool(self.workers) as pool:
             for start in range(0, len(files), window):
                 profiling.refresh()
                 with profiling.stage("loader.window"):
-                    probed = list(ex.map(self._probe, files[start : start + window]))
+                    probed = pool.map(self._probe, files[start : start + window])
                     misses = [(_Miss(i, mono, int16), src_sr)
                               for i, (kind, mono, int16, src_sr) in enumerate(probed)
                               if kind == "miss"]

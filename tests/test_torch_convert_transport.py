@@ -14,7 +14,12 @@ against the JAX package's, on the CPU.
   least 99.5% equal), with the same-rate int16-exact identity sending
   nothing to the device; the env validation;
 - ``--device-pipeline`` statistics on a fresh dataset, device against host
-  transport (the pipeline's float32 bounds, mu 1e-3 and cov 5e-3).
+  transport (the pipeline's float32 bounds, mu 1e-3 and cov 5e-3);
+- the host decode pool (``convert.DecodePool``): its threads resample with
+  numpy's OpenBLAS ``max(1, cores // workers)`` wide, the calling thread's
+  width is back once a window ends, the loader is closed early or a decode
+  raises; at the CLI's 8 workers the loader's host-transport clips equal bit
+  for bit the int16 the cached path's pool writes to the convert cache.
 """
 
 import shutil
@@ -23,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from fadtk_tpu_torch.audio.wavio import float_to_int16, write_wav_int16
+from fadtk_tpu_torch.audio.wavio import float_to_int16, read_wav_int16, write_wav_int16
 from fadtk_tpu_torch.dsp import resample as port
 from fadtk_tpu_torch.runner import convert
 
@@ -227,3 +232,64 @@ def test_device_pipeline_stats_device_vs_host_transport(fresh, tmp_path, monkeyp
     assert n_d == n_h == sum(CFG.num_output_frames(n) for n in lengths)
     np.testing.assert_allclose(mu_d, mu_h, atol=MU_ATOL, rtol=0)
     np.testing.assert_allclose(cov_d, cov_h, atol=COV_ATOL, rtol=0)
+
+
+def _openblas():
+    blas = convert.numpy_openblas()
+    if blas is None:
+        pytest.skip("numpy here runs on no OpenBLAS with a thread-count setter")
+    return blas
+
+
+@pytest.mark.parametrize("workers", [1, 8])
+def test_decode_pool_runs_blas_at_its_width(fresh, monkeypatch, workers):
+    blas = _openblas()
+    before = blas.get()
+    want = min(before, max(1, convert.usable_cores() // workers))
+    seen = []
+    real = convert.convert_audio
+
+    def spy(f, sr):
+        seen.append(blas.get())
+        return real(f, sr)
+
+    monkeypatch.setattr(convert, "convert_audio", spy)
+    files = sorted(fresh.glob("*.wav")) * 2  # 10 misses: two windows of 8 at one worker
+    clips = convert.ClipLoader(tiny_model(), workers=workers, transport="host").iter_clips(files)
+    next(clips)
+    assert blas.get() == before
+    clips.close()
+    assert blas.get() == before
+    assert len(seen) == (8 if workers == 1 else 10) and set(seen) == {want}
+
+    def broken(f, sr):
+        raise OSError(f"cannot decode {f}")
+
+    monkeypatch.setattr(convert, "convert_audio", broken)
+    with pytest.raises(OSError, match="cannot decode"):
+        list(convert.ClipLoader(tiny_model(), workers=workers, transport="host")
+             .iter_clips(files))
+    assert blas.get() == before
+
+
+def test_loader_clips_equal_the_cached_paths_convert_at_8_workers(tmp_path):
+    """44.1 kHz stereo songs to the tiny model's 8 kHz, where one BLAS thread
+    and eight give int16 a few LSBs apart."""
+    from fadtk_tpu_torch.runner.batch import cache_embedding_files
+    from fadtk_tpu_torch.utils import get_convert_cache_path
+
+    cached, loaded = tmp_path / "cached", tmp_path / "loaded"
+    for d in (cached, loaded):
+        d.mkdir()
+    for i, seconds in enumerate((1.9, 1.3, 1.6, 0.9)):
+        stereo = np.stack([_tone(44100, seconds, 20 + i), _tone(44100, seconds, 30 + i)], axis=1)
+        for d in (cached, loaded):
+            write_wav_int16(d / f"s{i}.wav", float_to_int16(stereo), 44100)
+    model = tiny_model()
+    cache_embedding_files(cached, model, workers=8)
+    clips = convert.ClipLoader(model, workers=8, transport="host").iter_clips(
+        sorted(loaded.glob("*.wav")))
+    for f, clip in zip(sorted(cached.glob("*.wav")), clips):
+        written, sr = read_wav_int16(get_convert_cache_path(model.sr, f))
+        assert sr == model.sr
+        assert np.array_equal(_to_int16(clip), written), f.name

@@ -382,8 +382,10 @@ def test_cli_device_pipeline_writes_the_csv_row(data, tmp_path, monkeypatch):
     assert rows[0] == "model,baseline,eval,score,inf_r2,time" and len(rows) == 2
     fields = rows[1].split(",")
     assert fields[:3] == ["tiny-speech", str(base), str(other)] and fields[4] == "None"
-    mu1, cov1, _ = dataset_stats_device(data["model"], base, batch=4, workers=1)
-    mu2, cov2, _ = dataset_stats_device(data["model"], other, batch=4, workers=1)
+    # at the CLI's 8 decode workers: the host resample's int16 depends on
+    # the BLAS width, which the pool's size sets (runner/convert.py::DecodePool)
+    mu1, cov1, _ = dataset_stats_device(data["model"], base, batch=4, workers=8)
+    mu2, cov2, _ = dataset_stats_device(data["model"], other, batch=4, workers=8)
     assert float(fields[3]) == frechet_distance(mu1, cov1, mu2, cov2)
     _no_caches(base)
     _no_caches(other)

@@ -9,6 +9,7 @@ nothing and opens no profiler range; under ``torch.profiler`` it records
 every span and counter, its counters add up by hand, its main-thread ranges
 reach the profiler's events, and its statistics are bit-identical to an
 untraced pass. ``FADTK_TPU_TRACE`` writes one chrome trace a pass. The
+loader counts its windows and the BLAS width each was decoded at. The
 device events (``pipeline.step_device_s`` / ``device_gap_s``) need a card.
 """
 
@@ -29,7 +30,7 @@ from fadtk_tpu_torch.models.speech.config import SpeechEncoderConfig
 from fadtk_tpu_torch.models.speech.family import SpeechEmbeddingModel
 from fadtk_tpu_torch.parallel import dp as dp_mod
 from fadtk_tpu_torch.parallel.mesh import make_mesh
-from fadtk_tpu_torch.runner import profiling
+from fadtk_tpu_torch.runner import convert, profiling
 from fadtk_tpu_torch.runner.convert import ClipLoader
 from fadtk_tpu_torch.runner.device_pipeline import dataset_stats_device
 from fadtk_tpu_torch.runner.fad import FrechetAudioDistance
@@ -47,7 +48,7 @@ LOADER_SPANS = {"loader.window", "loader.decode", "loader.resample", "loader.qua
 MODEL_SPANS = {"model.extractor", "model.attention", "model.ffn", "step.stats"}
 COUNTERS = {"pipeline.steps", "pipeline.rows", "pipeline.pad_rows", "pipeline.valid_samples",
             "pipeline.bucket_samples", "loader.audio_s", "loader.files", "loader.hits",
-            "loader.misses"}
+            "loader.misses", "loader.windows", "loader.blas_threads"}
 # Opened on the thread that drives the pass, so in the profiler's events.
 MAIN_THREAD = (PIPELINE_SPANS | MODEL_SPANS | {"loader.window"})
 
@@ -92,6 +93,14 @@ def data(tmp_path_factory):
     return {"dir": d, "files": files, "model": model, "clips": clips, "plain": plain}
 
 
+def blas_width(workers: int) -> int:
+    """The numpy BLAS width a decode pool of ``workers`` runs its windows at."""
+    blas = convert.numpy_openblas()
+    if blas is None:
+        return convert.usable_cores()
+    return min(blas.get(), max(1, convert.usable_cores() // workers))
+
+
 def run(model, files, d: Path):
     return dataset_stats_device(model, files, batch=BATCH, workers=2,
                                 checkpoint=d / "ckpt.npz")
@@ -134,6 +143,7 @@ def test_on_records_every_span_and_counter(traced):
     assert COUNTERS <= set(snap["counters"])
     c = snap["counters"]
     assert (c["loader.files"], c["loader.hits"], c["loader.misses"]) == (5, 1, 4)
+    assert (c["loader.windows"], c["loader.blas_threads"]) == (1, blas_width(2))  # window of 8
     calls = snap["calls"]
     assert calls["pipeline.step"] == calls["pipeline.merge"] == 3  # 5 clips, batches of 2
     assert calls["pipeline.checkpoint"] == 2  # at 2 and 4 files
@@ -170,6 +180,18 @@ def test_main_thread_ranges_reach_the_profiler_and_worker_spans_do_not(traced):
     assert not {profiling.PREFIX + n for n in LOADER_SPANS - {"loader.window"}} & names
 
 
+@pytest.mark.parametrize("workers", [1, 8])
+def test_loader_counts_windows_and_the_blas_width_of_each(data, workers):
+    files = data["files"] * 4  # 20 files: windows of 8 (one worker) or 32
+    assert not profiling.refresh()  # off, so the loader starts a record of its own
+    with profile(activities=[ProfilerActivity.CPU]):
+        clips = list(ClipLoader(data["model"], workers=workers).iter_clips(files))
+    c = profiling.snapshot()["counters"]
+    windows = 3 if workers == 1 else 1
+    assert len(clips) == 20 and c["loader.windows"] == windows
+    assert c["loader.blas_threads"] / c["loader.windows"] == blas_width(workers)
+
+
 def test_second_profiled_pass_starts_a_fresh_record(data, traced):
     _, first, _ = traced
     run(data["model"], data["files"][:3], data["dir"])  # untraced: tracing turns off
@@ -199,7 +221,9 @@ def test_env_trace_writes_a_chrome_trace_a_pass(data, tmp_path, monkeypatch, cap
     names = {e.get("name") for e in json.loads((out / "trace-rank0-0.json").read_text())
              ["traceEvents"]}
     assert "fadtk.pipeline.step" in names and "fadtk.model.attention" in names
-    assert profiling.snapshot()["counters"]["loader.files"] == 2  # the second pass's own
+    c = profiling.snapshot()["counters"]
+    assert c["loader.files"] == 2  # the second pass's own
+    assert (c["loader.windows"], c["loader.blas_threads"]) == (1, blas_width(2))
     assert not profiling.refresh()  # off once the pass's session ends
     lines = [r.message for r in caplog.records if r.message.startswith("[profile]")]
     assert len(lines) == 4 and "pipeline.step=" in lines[0]  # totals and path, a pass each
