@@ -18,6 +18,8 @@ from abc import ABC, abstractmethod
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from ..utils import PathLike, log
 
@@ -56,6 +58,18 @@ def flatten_lstm_weights(module: torch.nn.Module) -> torch.nn.Module:
 def cast_module(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
     """``module.to(dtype)`` with its LSTM weights re-flattened."""
     return flatten_lstm_weights(module.to(dtype))
+
+
+def row_sharded_linear(lin: torch.nn.Linear, x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lin(x)`` for a projection whose input features are split over the
+    tensor-parallel ``group`` (the row-parallel cut of ``parallel/``): the
+    ranks' partial products are summed over the group, then the whole bias
+    is added once. Without a group (one rank), the plain fused-bias call."""
+    if group is None:
+        return lin(x)
+    y = F.linear(x, lin.weight)
+    dist.all_reduce(y, group=group)
+    return y + lin.bias
 
 
 class EmbeddingModel(ABC):

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...runner import profiling
+from ..base import row_sharded_linear
 from ..precision import gelu
 from .config import SpeechEncoderConfig
 
@@ -275,7 +276,12 @@ def use_flash_attention(dtype, frame_valid, t: int | None, device: torch.device)
     return False
 
 
-def standard_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, frame_valid=None):
+def standard_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, frame_valid=None,
+                       *, tp_group=None):
+    """Multi-head attention (HF Wav2Vec2Attention) on the heads that ``p``
+    holds: all of them, or a tensor-parallel shard's (``parallel/tp.py``),
+    whose out_proj partial sums ``tp_group`` adds up."""
+    heads = p.q_proj.weight.shape[0] // cfg.head_dim
     q = p.q_proj(x)
     k = p.k_proj(x)
     v = p.v_proj(x)
@@ -284,11 +290,11 @@ def standard_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, fram
         # (B, H, T, D) transposes.
         from ...ops.flash_attention import flash_attention_packed
 
-        out = flash_attention_packed(q, k, v, frame_valid, num_heads=cfg.num_heads)
+        out = flash_attention_packed(q, k, v, frame_valid, num_heads=heads)
     else:
-        qh, kh, vh = (_split_heads(y, cfg.num_heads) for y in (q, k, v))
+        qh, kh, vh = (_split_heads(y, heads) for y in (q, k, v))
         out = _attention_core(qh, kh, vh, key_bias)
-    return p.out_proj(out)
+    return row_sharded_linear(p.out_proj, out, tp_group)
 
 
 def _wavlm_relative_buckets(num_buckets: int, max_distance: int, t: int) -> np.ndarray:
@@ -372,32 +378,47 @@ def _wavlm_gate_and_bias(cfg, p: Attention, x, position_bias, key_bias, first_he
 
 
 def wavlm_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, position_bias,
-                    frame_valid=None):
+                    frame_valid=None, *, tp_group=None, first_head: int = 0,
+                    head_major: bool = False):
     """WavLM gated relative position bias attention (HF WavLMAttention), the
-    gate and bias from ``wavlm_gated_bias``.
+    gate and bias from ``wavlm_gated_bias``, on the heads that ``p`` holds
+    from ``first_head`` on: all of them, or a tensor-parallel shard's
+    (``parallel/tp.py``), whose out_proj partial sums ``tp_group`` adds up.
+    ``position_bias`` holds the same heads.
 
-    bf16 takes the flash kernel, which adds gate ⊙ position_bias per tile
+    bf16 takes a flash kernel, which adds gate ⊙ position_bias per tile
     without building the dense (B, H, T, T) term; gate and bias are cast to
-    float32 for it. float32 always takes the plain dense path, whatever
-    ``FADTK_TPU_FLASH_F32`` says, as the JAX package does (its routing call
-    passes no length).
+    float32 for it. The kernel is K1b (``flash_attention_packed``) on the
+    projection layout, or with ``head_major`` K2 (``flash_attention``) on
+    the head-split views, as the JAX package's tp step routes it. float32
+    always takes the plain dense path, whatever ``FADTK_TPU_FLASH_F32``
+    says, as the JAX package does (its routing call passes no length).
     """
+    heads = p.q_proj.weight.shape[0] // cfg.head_dim
     q = p.q_proj(x)
     k = p.k_proj(x)
     v = p.v_proj(x)
     flash = use_flash_attention(x.dtype, frame_valid, None, x.device)  # no length: bf16 only
-    gate, bias = wavlm_gated_bias(cfg, p, x, position_bias, key_bias, dense=not flash)
-    if flash:
+    gate, bias = wavlm_gated_bias(cfg, p, x, position_bias, key_bias, first_head=first_head,
+                                  dense=not flash)
+    if flash and head_major:
+        from ...ops.flash_attention import flash_attention
+
+        o = flash_attention(*(_split_heads(y, heads) for y in (q, k, v)), frame_valid,
+                            position_bias=position_bias.float(),
+                            gate=gate.transpose(1, 2).float())
+        out = o.transpose(1, 2).flatten(2)
+    elif flash:
         from ...ops.flash_attention import flash_attention_packed
 
         out = flash_attention_packed(
             q, k, v, frame_valid, position_bias.float(), gate.float().contiguous(),
-            num_heads=cfg.num_heads,
+            num_heads=heads,
         )
     else:
-        qh, kh, vh = (_split_heads(y, cfg.num_heads) for y in (q, k, v))
+        qh, kh, vh = (_split_heads(y, heads) for y in (q, k, v))
         out = _attention_core(qh, kh, vh, bias)
-    return p.out_proj(out)
+    return row_sharded_linear(p.out_proj, out, tp_group)
 
 
 # --------------------------------------------------------------------------- #
@@ -405,28 +426,40 @@ def wavlm_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, positio
 # --------------------------------------------------------------------------- #
 
 
-def _feed_forward(p: nn.ModuleDict, x):
-    return p["output_dense"](gelu(p["intermediate_dense"](x)))
+def _feed_forward(p: nn.ModuleDict, x, tp_group=None):
+    return row_sharded_linear(p["output_dense"], gelu(p["intermediate_dense"](x)), tp_group)
 
 
 def encoder_layer(cfg: SpeechEncoderConfig, p: nn.ModuleDict, x, key_bias, position_bias,
-                  frame_valid=None):
+                  frame_valid=None, *, tp_group=None, first_head: int = 0,
+                  head_major: bool = False):
+    """One transformer layer. The keywords serve a tensor-parallel shard
+    (``parallel/tp.py``): ``tp_group`` sums the row-parallel projections,
+    and ``first_head`` / ``head_major`` reach ``wavlm_attention``. Traced
+    as the spans ``model.attention`` and ``model.ffn``."""
     eps = cfg.layer_norm_eps
-    if cfg.attention_type == "wavlm":
-        def attn(y):
-            return wavlm_attention(cfg, p["attention"], y, key_bias, position_bias, frame_valid)
-    else:
-        def attn(y):
-            return standard_attention(cfg, p["attention"], y, key_bias, frame_valid)
+
+    def attn(y):
+        with profiling.stage("model.attention"):
+            if cfg.attention_type == "wavlm":
+                return wavlm_attention(cfg, p["attention"], y, key_bias, position_bias,
+                                       frame_valid, tp_group=tp_group, first_head=first_head,
+                                       head_major=head_major)
+            return standard_attention(cfg, p["attention"], y, key_bias, frame_valid,
+                                      tp_group=tp_group)
+
+    def ffn(y):
+        with profiling.stage("model.ffn"):
+            return _feed_forward(p["feed_forward"], y, tp_group)
 
     if cfg.do_stable_layer_norm:
         # Pre-norm (HF Wav2Vec2EncoderLayerStableLayerNorm).
         x = x + attn(_layer_norm(x, p["layer_norm"], eps))
-        x = x + _feed_forward(p["feed_forward"], _layer_norm(x, p["final_layer_norm"], eps))
+        x = x + ffn(_layer_norm(x, p["final_layer_norm"], eps))
     else:
         # Post-norm (HF Wav2Vec2EncoderLayer).
         x = _layer_norm(x + attn(x), p["layer_norm"], eps)
-        x = _layer_norm(x + _feed_forward(p["feed_forward"], x), p["final_layer_norm"], eps)
+        x = _layer_norm(x + ffn(x), p["final_layer_norm"], eps)
     return x
 
 
@@ -440,6 +473,7 @@ def speech_encoder_forward(
     audio: torch.Tensor,
     num_valid: torch.Tensor | None = None,
     taps: tuple[int, ...] | None = None,
+    **shard,
 ):
     """Full forward pass.
 
@@ -448,17 +482,22 @@ def speech_encoder_forward(
             model's device.
         num_valid: (B,) int true sample counts (defaults to full length).
         taps: hidden-state indices to return (None = all num_layers + 1).
+        shard: ``encoder_layer``'s tensor-parallel keywords, for a model that
+            holds one tp rank's shard (``parallel/tp.py``).
 
     Returns:
         hidden_states: (len(taps) or num_layers + 1, B, T_frames, H), in the
-            parameter dtype — HF's output_hidden_states tuple, stacked.
+            parameter dtype — HF's output_hidden_states tuple, stacked (one
+            tap comes as a view, without a copy).
         frame_mask: (B, T_frames) validity mask.
     """
     cfg = model.cfg
     if num_valid is None:
         num_valid = torch.full(audio.shape[:1], audio.shape[1], dtype=torch.int32,
                                device=audio.device)
-    x, frame_mask, frame_valid, key_bias, position_bias = encoder_inputs(model, audio, num_valid)
+    with profiling.stage("model.extractor"):
+        x, frame_mask, frame_valid, key_bias, position_bias = encoder_inputs(
+            model, audio, num_valid)
 
     wanted = set(range(cfg.num_layers + 1)) if taps is None else set(taps)
     collected: dict[int, torch.Tensor] = {}
@@ -466,7 +505,7 @@ def speech_encoder_forward(
         collected[0] = x
     n_run = max(wanted)
     for i, p in enumerate(model.encoder["layers"][:n_run], start=1):
-        x = encoder_layer(cfg, p, x, key_bias, position_bias, frame_valid)
+        x = encoder_layer(cfg, p, x, key_bias, position_bias, frame_valid, **shard)
         if i in wanted:
             collected[i] = x
 
@@ -476,12 +515,13 @@ def speech_encoder_forward(
                                       cfg.layer_norm_eps)
 
     order = sorted(collected) if taps is None else list(taps)
+    if len(order) == 1:
+        return collected[order[0]][None], frame_mask
     return torch.stack([collected[i] for i in order], dim=0), frame_mask
 
 
 def encoder_inputs(model: SpeechEncoder, audio: torch.Tensor, num_valid: torch.Tensor):
-    """The forward up to the first transformer layer, shared with the
-    tensor-parallel forward (``parallel/tp.py``): input normalisation, the
+    """The forward up to the first transformer layer: input normalisation, the
     conv extractor, the feature projection, the positional conv and (post-norm)
     the encoder layer norm.
 

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .base import row_sharded_linear
 from .precision import gelu
 
 
@@ -146,15 +147,19 @@ def _ln(x: torch.Tensor, ln: nn.LayerNorm, eps: float) -> torch.Tensor:
 
 
 def _attention(p: Attention, x: torch.Tensor, kv: torch.Tensor, num_heads: int,
-               causal: bool = False) -> torch.Tensor:
+               causal: bool = False, tp_group=None) -> torch.Tensor:
     """Whisper attention, logits and softmax in the compute dtype; kv is x
-    for self-attention. k_proj has no bias."""
+    for self-attention. k_proj has no bias. ``num_heads`` is the model's;
+    ``p`` holds all of them or a tensor-parallel shard's
+    (``parallel/whisper_tp.py``), whose out_proj partial sums ``tp_group``
+    adds up."""
     b, tq, d = x.shape
     tk = kv.shape[1]
     hd = d // num_heads
+    heads = p.q_proj.weight.shape[0] // hd
 
     def split(t, tlen):
-        return t.reshape(b, tlen, num_heads, hd).transpose(1, 2)
+        return t.reshape(b, tlen, heads, hd).transpose(1, 2)
 
     q = split(p.q_proj(x), tq) * (hd ** -0.5)
     k = split(p.k_proj(kv), tk)
@@ -164,16 +169,19 @@ def _attention(p: Attention, x: torch.Tensor, kv: torch.Tensor, num_heads: int,
         mask = torch.ones((tq, tk), dtype=torch.bool, device=x.device).tril()
         logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
     w = torch.softmax(logits, dim=-1)
-    out = (w @ v).transpose(1, 2).reshape(b, tq, d)
-    return p.out_proj(out)
+    out = (w @ v).transpose(1, 2).reshape(b, tq, heads * hd)
+    return row_sharded_linear(p.out_proj, out, tp_group)
 
 
-def _feed_forward(p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
-    return p["fc2"](gelu(p["fc1"](x)))
+def _feed_forward(p: nn.ModuleDict, x: torch.Tensor, tp_group=None) -> torch.Tensor:
+    return row_sharded_linear(p["fc2"], gelu(p["fc1"](x)), tp_group)
 
 
-def whisper_encode(model: Whisper, input_features: torch.Tensor) -> torch.Tensor:
-    """(B, 80, 3000) log-mel -> (B, 1500, d) encoder states."""
+def whisper_encode(model: Whisper, input_features: torch.Tensor,
+                   tp_group=None) -> torch.Tensor:
+    """(B, 80, 3000) log-mel -> (B, 1500, d) encoder states. A model that
+    holds one tp rank's shard sums its row-parallel projections over
+    ``tp_group``."""
     cfg, enc = model.cfg, model.encoder
     eps = cfg.layer_norm_eps
     x = gelu(enc.conv1(input_features))
@@ -181,38 +189,41 @@ def whisper_encode(model: Whisper, input_features: torch.Tensor) -> torch.Tensor
     x = x + enc.embed_positions[None, : x.shape[1]]
     for p in enc.layers:
         h = _ln(x, p["self_attn_layer_norm"], eps)
-        x = x + _attention(p["self_attn"], h, h, cfg.encoder_heads)
-        x = x + _feed_forward(p, _ln(x, p["final_layer_norm"], eps))
+        x = x + _attention(p["self_attn"], h, h, cfg.encoder_heads, tp_group=tp_group)
+        x = x + _feed_forward(p, _ln(x, p["final_layer_norm"], eps), tp_group)
     return _ln(x, enc.layer_norm, eps)
 
 
-def whisper_decode(model: Whisper, token_ids: torch.Tensor,
-                   enc_states: torch.Tensor) -> torch.Tensor:
-    """(B, T) tokens + encoder states -> (B, T, d) decoder last hidden state."""
+def whisper_decode(model: Whisper, token_ids: torch.Tensor, enc_states: torch.Tensor,
+                   tp_group=None) -> torch.Tensor:
+    """(B, T) tokens + encoder states -> (B, T, d) decoder last hidden state;
+    ``tp_group`` as in ``whisper_encode``."""
     cfg, dec = model.cfg, model.decoder
     eps = cfg.layer_norm_eps
     x = dec.embed_tokens[token_ids] + dec.embed_positions[None, : token_ids.shape[1]]
     for p in dec.layers:
         h = _ln(x, p["self_attn_layer_norm"], eps)
-        x = x + _attention(p["self_attn"], h, h, cfg.decoder_heads, causal=True)
+        x = x + _attention(p["self_attn"], h, h, cfg.decoder_heads, causal=True,
+                           tp_group=tp_group)
         x = x + _attention(p["encoder_attn"], _ln(x, p["encoder_attn_layer_norm"], eps),
-                           enc_states, cfg.decoder_heads)
-        x = x + _feed_forward(p, _ln(x, p["final_layer_norm"], eps))
+                           enc_states, cfg.decoder_heads, tp_group=tp_group)
+        x = x + _feed_forward(p, _ln(x, p["final_layer_norm"], eps), tp_group)
     return _ln(x, dec.layer_norm, eps)
 
 
-def whisper_forward(model: Whisper, input_features: torch.Tensor) -> torch.Tensor:
+def whisper_forward(model: Whisper, input_features: torch.Tensor,
+                    tp_group=None) -> torch.Tensor:
     """The reference's embedding forward: 2 forced start tokens -> (B, 2, d)
     float32 decoder states (fadtk/model_loader.py:662,669). The features
     move to the weights' device and dtype (the frontend is float32 in both
-    precision modes)."""
+    precision modes). ``tp_group`` as in ``whisper_encode``."""
     w = model.encoder.conv1.weight
     input_features = input_features.to(device=w.device, dtype=w.dtype)
-    enc_states = whisper_encode(model, input_features)
+    enc_states = whisper_encode(model, input_features, tp_group)
     b = input_features.shape[0]
     tokens = torch.full((b, 2), model.cfg.decoder_start_token_id, dtype=torch.long,
                         device=w.device)
-    return whisper_decode(model, tokens, enc_states).float()
+    return whisper_decode(model, tokens, enc_states, tp_group).float()
 
 
 # --------------------------------------------------------------------------- #

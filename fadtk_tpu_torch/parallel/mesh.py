@@ -38,8 +38,7 @@ from ..utils import resolve_device
 @dataclass(frozen=True)
 class Mesh:
     """This rank's place in the (dp, tp) grid, its two process groups (None
-    where the axis has one rank) and its device. Equal meshes hash equal, so
-    a step memoised on one serves the next dataset pass."""
+    where the axis has one rank) and its device."""
 
     dp: int
     tp: int

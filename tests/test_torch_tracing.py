@@ -243,13 +243,22 @@ def test_cached_path_logs_profile_only_under_tracing(data, tmp_path, monkeypatch
         caplog.clear()
         with caplog.at_level(logging.INFO, logger="fadtk_tpu_torch"):
             if k:
+                forwards = []
+                real = data["model"]._forward
+                monkeypatch.setattr(data["model"], "_forward",
+                                    lambda *a: forwards.append(a) or real(*a))
                 with profile(activities=[ProfilerActivity.CPU]):
                     cache_embedding_files(d, data["model"], workers=2)
+                calls = profiling.snapshot()["calls"]
             else:
                 cache_embedding_files(d, data["model"], workers=2)
         lines = [r.message for r in caplog.records if r.message.startswith("[profile]")]
         if k:
             assert len(lines) == 1 and "embed=" in lines[0] and "loader.resample=" in lines[0]
+            # the cached forward is the step's: one span of each per layer run
+            layers = data["model"].layer
+            assert forwards and calls["model.extractor"] == len(forwards)
+            assert calls["model.attention"] == calls["model.ffn"] == layers * len(forwards)
         else:
             assert lines == []
 
