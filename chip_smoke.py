@@ -57,6 +57,12 @@ Phases:
      function (a real FFT of n_fft points, the split and power over the mel
      bands' bins, the mel matrix's nonzeros), with the GEMM formulation's
      bound (the folded DFT where the bases fold) printed beside;
+   - K5, the float32 attention's bias and softmax in one pass in place over
+     the logits: the 60 s bucket B=16/T=2999 and the 10 s bucket T=499,
+     in WavLM-large's gated form (H=16, the (16, T, T) table) and in
+     w2v2-base's key-mask form (H=12), ragged n_valid, against its twin,
+     the torch composition it replaced (no single library call computes
+     it), every row summing to 1 and every padded key exactly 0;
 4. full-width forwards (random weights from a seed) of w2v2-base,
    wavlm-base-plus and MERT-v1-95M (24 kHz, T=749): f32 on the card against
    f32 on the CPU, same weights, one 10 s clip; for w2v2-base then one f32
@@ -65,9 +71,12 @@ Phases:
    in none without it (the JAX package's routing); for MERT-v1-95M a
    batch-16 f32 forward of the 10 s bucket (T=749) with and without
    ``FADTK_TPU_FLASH_F32=1``, which must launch K1 12 times and 0 times and
-   agree within ``RTOL_CARD_VS_CPU`` of the largest value, both timed; then
-   batch-16 forward times for each (f32, bf16, bf16 with plain attention)
-   and the device time by kernel from torch.profiler;
+   agree within ``RTOL_CARD_VS_CPU`` of the largest value, both timed (K1
+   against plain PyTorch: wherever these phases say plain attention, its
+   bias and softmax are the torch composition in K5's place); then
+   batch-16 forward times for each (f32, f32 with plain attention, bf16,
+   bf16 with plain attention) and the device time by kernel from
+   torch.profiler;
 5. the codec families through their model classes, f32 on the card against
    f32 on the CPU, same weights: encodec-emb on one 10 s clip with the fused
    block's knob (FADTK_TPU_FUSED_RESNET) on and off, encodec-emb-48k on a
@@ -112,15 +121,17 @@ Phases:
    encodec-emb-48k, dac-44kHz, whisper-base, vggish, clap-laion-music,
    clap-2023 and cdpam-acoustic in f32 and ``--bf16``. Every kernel launch
    count is set to 0 just before each run and read just after it: K1/K1b
-   must launch 12 times per speech device batch, K4 (f32) or K4b (its bf16
-   tensor-core form) 4 times per encodec-emb forward, K3 once per whisper
-   (folded body) or CLAP forward (FFT body), and no kernel elsewhere;
+   (bf16) and K5 (f32) must launch 12 times per speech device batch, K4
+   (f32) or K4b (its bf16 tensor-core form) 4 times per encodec-emb
+   forward, K3 once per whisper (folded body) or CLAP forward (FFT body),
+   and no kernel elsewhere;
 9. the device pipeline through the CLI (``--device-pipeline``: no embedding
    caches, statistics on the card) on the same two datasets: w2v2-base and
    wavlm-base-plus in f32 and ``--bf16``, and w2v2-base f32 with ``--batch 4``
    and a checkpoint every 4 files. K1 must launch 12 times per device batch
-   for w2v2-base bf16 and K2 12 times per device batch for wavlm-base-plus
-   bf16 (its tensor-parallel step at tp=1), no kernel elsewhere; the frame
+   for w2v2-base bf16, K2 12 times per device batch for wavlm-base-plus
+   bf16 (its tensor-parallel step at tp=1) and K5 12 times per device batch
+   in every f32 run, no kernel elsewhere; the frame
    count must match the clips, the statistics the cached path's
    ``stats/<model>/`` and the score the cached path's, in f32 and bf16
    (``PIPE_TOL``); for w2v2-base f32 the gap is split into its sources
@@ -172,7 +183,8 @@ Phases:
    cached f32 CLI runs (none: the knob is off) and the knob's forwards of
    phase 4; K3 and K4 over the cached
    CLI runs, the non-speech ``--device-pipeline`` runs and, for K3's
-   Whisper form, the device-transport runs), then
+   Whisper form, the device-transport runs; K5 over the cached and the
+   device-pipeline f32 speech runs), then
    ``{"ok": true, "device": ...}``.
 """
 
@@ -470,6 +482,81 @@ def k2_checks(torch, fa) -> tuple[dict, dict, dict]:
     print(f"K2 bf16 bias H=12, contiguous / strided views: {bias['ms']:.4f} / "
           f"{strided['ms']:.4f} ms", flush=True)
     return bias, grouped, bias_f32
+
+
+def check_attention_softmax(torch, asm, t: int, heads: int, gated: bool) -> dict:
+    """K5 against its twin at (BATCH, heads, t, t) with the ragged n_valid of
+    ``check_kernel``; with ``gated``, WavLM's gate (B, T, H) in [1, 3] and a
+    random table (H, T, T) ~ N(0, 1). The twin's probabilities are computed
+    first, a block of query rows at a time, then the kernel overwrites the
+    logits: within 1e-6 of the twin, every row summing to 1 within 1e-6 (in
+    float64), padded keys exactly 0. Times the kernel (in place, on the same
+    logits) and the twin, the torch composition the kernel replaced; the
+    bound counts the logits read and written once, the table, gate and key
+    mask read once, and the bias and softmax arithmetic (3 + 5 operations an
+    element gated, 1 + 5 with the key mask alone)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + t + heads)
+    logits = torch.randn((BATCH, heads, t, t), generator=g, device=dev).mul_(3.0)
+    nv_list = [min(n, t) for n in
+               [1, 64, 65, t, t - 1, 128, 2, 200, 63, t, 129, 300, t // 2, 450, 191, t]]
+    nv = torch.tensor(nv_list, device=dev)
+    valid = torch.arange(t, device=dev)[None, :] < nv[:, None]
+    key_bias = ((1.0 - valid.float()) * torch.finfo(torch.float32).min)[:, None, None, :]
+    gate = table = None
+    if gated:
+        gate = torch.rand((BATCH, t, heads), generator=g, device=dev) * 2.0 + 1.0
+        table = torch.randn((heads, t, t), generator=g, device=dev)
+    label = f"K5 {'gated' if gated else 'key mask'} float32 B={BATCH} T={t} H={heads}"
+    rows = 256
+    want = torch.empty_like(logits)
+    for i in range(0, t, rows):
+        sl = slice(i, min(i + rows, t))
+        want[:, :, sl] = asm.attention_softmax_reference(
+            logits[:, :, sl], key_bias, None if gate is None else gate[:, sl],
+            None if table is None else table[:, sl])
+    plain_ms = cuda_ms(torch, lambda: asm.attention_softmax_reference(
+        logits, key_bias, gate, table), runs=5)
+    before = asm.attention_softmax.launches
+    got = asm.attention_softmax(logits, key_bias, gate, table)
+    torch.cuda.synchronize()
+    if asm.attention_softmax.launches != before + 1 or got.data_ptr() != logits.data_ptr():
+        raise AssertionError(f"{label}: not one launch in place")
+    err = sum_err = 0.0
+    for i in range(0, t, rows):
+        block, ref = got[:, :, i:i + rows], want[:, :, i:i + rows]
+        if not torch.isfinite(block).all():
+            raise AssertionError(f"{label}: non-finite probabilities")
+        sum_err = max(sum_err, (block.sum(-1, dtype=torch.float64) - 1).abs().max().item())
+        err = max(err, (block - ref).abs().max().item())
+    for b, n in enumerate(nv_list):
+        if n < t and got[b, ..., n:].abs().max().item() != 0.0:
+            raise AssertionError(f"{label} b={b}: a padded key's probability is not 0")
+    del want
+    ms = cuda_ms(torch, lambda: asm.attention_softmax(logits, key_bias, gate, table), runs=10)
+    elements = logits.numel()
+    nbytes = 4 * (2 * elements + key_bias.numel())
+    if gated:
+        nbytes += 4 * (table.numel() + gate.numel())
+    bound = _roofline(elements * ((3 if gated else 1) + 5), nbytes, "float32")
+    print(f"{label}: max_abs_err={err:.3e} (atol 1e-6), max |row sum - 1| {sum_err:.3e}; "
+          f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms (the torch chain it replaced); "
+          f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} ({nbytes / 1e9:.3f} GB), "
+          f"{100 * bound['bound_ms'] / ms:.1f}% of it", flush=True)
+    del logits, got, table
+    torch.cuda.empty_cache()
+    if not (err <= 1e-6 and sum_err <= 1e-6):
+        raise AssertionError(f"{label}: kernel vs twin {err}, row sums off by {sum_err}")
+    return {"max_abs_err": err, "row_sum_err": sum_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+
+
+def k5_checks(torch, asm) -> dict:
+    """K5 in both forms at the 60 s and the 10 s buckets; returns the
+    kernels-line entries by form, the 10 s case under ``t499``."""
+    return {form: {**check_attention_softmax(torch, asm, 2999, heads, gated),
+                   "t499": check_attention_softmax(torch, asm, 499, heads, gated)}
+            for form, heads, gated in (("gated", 16, True), ("key mask", 12, False))}
 
 
 def resnet_bound(b: int, c: int, t: int, dtype: str) -> dict:
@@ -786,13 +873,29 @@ def card_vs_cpu(torch, model_name: str):
     return gpu_model, model.sr
 
 
+@contextlib.contextmanager
+def plain_softmax():
+    """The plain attention's bias and softmax as the torch composition
+    (``attention_softmax_reference``) in K5's place, so that a kernel is
+    held against, and a forward timed with, plain PyTorch."""
+    from fadtk_tpu_torch.models.speech import encoder
+    from fadtk_tpu_torch.ops import attention_softmax as asm
+
+    encoder.attention_softmax = asm.attention_softmax_reference
+    try:
+        yield
+    finally:
+        encoder.attention_softmax = asm.attention_softmax
+
+
 def flash_f32_min_t_check(torch, fa, m32) -> int:
     """w2v2-base f32 forwards of one 10 s clip (T=499) with
     ``FADTK_TPU_FLASH_F32=1``: under ``FADTK_TPU_FLASH_F32_MIN_T=256`` (the
     JAX package's f32 probe setting) every layer's attention takes K1 (12
-    launches), without it (default 640) none; the two forwards agree within
-    ``RTOL_CARD_VS_CPU`` of the largest value (printed). Returns the K1
-    launches under the length knob."""
+    launches), without it (default 640) none, and the plain attention runs
+    (``plain_softmax``); the two forwards agree within ``RTOL_CARD_VS_CPU``
+    of the largest value (printed). Returns the K1 launches under the length
+    knob."""
     from fadtk_tpu_torch.models.speech.encoder import speech_encoder_forward
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -807,7 +910,8 @@ def flash_f32_min_t_check(torch, fa, m32) -> int:
             else:
                 os.environ["FADTK_TPU_FLASH_F32_MIN_T"] = min_t
             fa.flash_attention_packed.launches = 0
-            with torch.inference_mode():
+            with torch.inference_mode(), (plain_softmax() if min_t is None
+                                          else contextlib.nullcontext()):
                 outs[min_t], mask = speech_encoder_forward(m32, audio, taps=(tap,))
             torch.cuda.synchronize()
             launches[min_t] = fa.flash_attention_packed.launches
@@ -843,10 +947,11 @@ def bucket_batch(torch, sr: int):
 def mert_flash_f32_check(torch, fa, m32, sr: int) -> dict:
     """MERT-v1-95M f32 forwards of a batch of the 10 s bucket (T=749) with
     and without ``FADTK_TPU_FLASH_F32=1``: the knob sends every layer's
-    attention to K1's float32 body (12 launches a forward), its absence to
-    the plain attention (0); the two agree within ``RTOL_CARD_VS_CPU`` of the
-    largest value on valid frames. Both forwards are timed (CUDA events).
-    Returns the launches and times."""
+    attention to K1's float32 body (12 launches a forward, and no K5), its
+    absence to the plain attention (0; ``plain_softmax``); the two agree
+    within ``RTOL_CARD_VS_CPU`` of the largest value on valid frames. Both
+    forwards are timed (CUDA events). Returns the launches and times."""
+    from fadtk_tpu_torch.ops import attention_softmax as asm
     from fadtk_tpu_torch.models.speech.encoder import speech_encoder_forward
 
     audio, nv, audio_s = bucket_batch(torch, sr)
@@ -860,11 +965,15 @@ def mert_flash_f32_check(torch, fa, m32, sr: int) -> dict:
     try:
         for knob in ("1", ""):
             os.environ["FADTK_TPU_FLASH_F32"] = knob
-            fa.flash_attention_packed.launches = 0
-            outs[knob], mask = forward()
-            torch.cuda.synchronize()
-            launches[knob] = fa.flash_attention_packed.launches
-            ms[knob] = cuda_ms(torch, forward, runs=10)
+            fa.flash_attention_packed.launches = asm.attention_softmax.launches = 0
+            with plain_softmax() if knob == "" else contextlib.nullcontext():
+                outs[knob], mask = forward()
+                torch.cuda.synchronize()
+                launches[knob] = fa.flash_attention_packed.launches
+                ms[knob] = cuda_ms(torch, forward, runs=10)
+            if asm.attention_softmax.launches:
+                raise AssertionError(f"FADTK_TPU_FLASH_F32={knob!r}: K5 launched "
+                                     f"{asm.attention_softmax.launches} times")
     finally:
         os.environ.pop("FADTK_TPU_FLASH_F32", None)
     t = mask.shape[1]
@@ -884,9 +993,10 @@ def mert_flash_f32_check(torch, fa, m32, sr: int) -> dict:
 
 def forward_breakdown(torch, m32, model_name: str, sr: int) -> None:
     """Batch-16 forwards of the 10 s bucket (8 full clips, 8 ragged): median
-    CUDA-event time in f32, bf16, and bf16 with the plain attention instead of
-    the kernel; then device time by kernel from torch.profiler. Also warms up
-    the libraries before the timed CLI runs."""
+    CUDA-event time in f32 (K5), f32 with the plain attention
+    (``plain_softmax``), bf16, and bf16 with the plain attention instead of
+    the flash kernel; then device time by kernel from torch.profiler. Also
+    warms up the libraries before the timed CLI runs."""
     import copy
 
     from fadtk_tpu_torch.models.speech.encoder import speech_encoder_forward
@@ -899,10 +1009,11 @@ def forward_breakdown(torch, m32, model_name: str, sr: int) -> None:
         with torch.inference_mode():
             return speech_encoder_forward(model, audio, nv, taps=(tap,))
 
-    for name, model, flash in (("f32", m32, ""), ("bf16", m16, ""),
-                               ("bf16 plain attention", m16, "0")):
+    for name, model, flash in (("f32", m32, ""), ("f32 plain attention", m32, ""),
+                               ("bf16", m16, ""), ("bf16 plain attention", m16, "0")):
         os.environ["FADTK_TPU_FLASH_ATTENTION"] = flash
-        ms = cuda_ms(torch, lambda: forward(model), runs=10)
+        with plain_softmax() if "plain" in name else contextlib.nullcontext():
+            ms = cuda_ms(torch, lambda: forward(model), runs=10)
         print(f"{model_name} forward {name}: {ms:.3f} ms per batch of 16 = "
               f"{audio_s / ms * 1e3:.1f} audio-s/s ({audio_s:.1f} s of valid audio in the "
               "10 s bucket)", flush=True)
@@ -1196,7 +1307,6 @@ def cli_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: b
     model = get_model(model_name)
     key = model_name + ("-bf16" if bf16 else "")
     csv = work / f"scores-{key}.csv"
-    fa, fr, k3 = kernels
     # The embed stage: host seconds inside the model's embed_batch, which
     # ends in a host copy of the embeddings and so waits for the device.
     cls = type(model)
@@ -1263,24 +1373,26 @@ def cli_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: b
     return {**launches, "forwards": n_forwards, "rate": seconds / embed_s, "score": score}
 
 
-KERNEL_KEYS = ("K1", "K1b", "K4", "K4b", "K3", "K3f", "K2", "K2g")
+KERNEL_KEYS = ("K1", "K1b", "K4", "K4b", "K3", "K3f", "K2", "K2g", "K5")
 
 
 def reset_counts(kernels) -> None:
     """Every kernel launch count to 0."""
-    fa, fr, k3 = kernels
+    fa, fr, k3, asm = kernels
     fa.flash_attention_packed.launches = fa.flash_attention_packed.bias_launches = 0
     fa.flash_attention.launches = fa.flash_attention.bias_launches = 0
     fa.flash_attention.grouped_launches = 0
     fr.fused_resnet_causal.launches = fr.fused_resnet_causal.bf16_launches = 0
     k3.fused_log_mel.launches = k3.fused_log_mel.fft_launches = 0
+    asm.attention_softmax.launches = 0
 
 
 def read_counts(kernels) -> dict:
     """The launch counts by kernel; K4 is the float32 SEANet block, K4b its
     bf16 tensor-core form; K2 is the per-head grid (with or without bias,
-    ``flash_attention.py:490``), K2g the grouped one (:422)."""
-    fa, fr, k3 = kernels
+    ``flash_attention.py:490``), K2g the grouped one (:422); K5 the float32
+    attention's bias and softmax, gated or with the key mask alone."""
+    fa, fr, k3, asm = kernels
     return {"K1": fa.flash_attention_packed.launches,
             "K1b": fa.flash_attention_packed.bias_launches,
             "K4": fr.fused_resnet_causal.launches,
@@ -1288,7 +1400,8 @@ def read_counts(kernels) -> dict:
             "K3": k3.fused_log_mel.launches,
             "K3f": k3.fused_log_mel.fft_launches,
             "K2": fa.flash_attention.launches + fa.flash_attention.bias_launches,
-            "K2g": fa.flash_attention.grouped_launches}
+            "K2g": fa.flash_attention.grouped_launches,
+            "K5": asm.attention_softmax.launches}
 
 
 def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
@@ -1304,8 +1417,9 @@ def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
     fused = {"FADTK_TPU_FUSED_RESNET": "1"}
     # (model, bf16, env for the run, kernel that must launch and how often
     # per device forward, or None)
-    runs = [("w2v2-base", False, None, None), ("w2v2-base", True, None, ("K1", 12)),
-            ("wavlm-base-plus", False, None, None), ("wavlm-base-plus", True, None, ("K1b", 12)),
+    runs = [("w2v2-base", False, None, ("K5", 12)), ("w2v2-base", True, None, ("K1", 12)),
+            ("wavlm-base-plus", False, None, ("K5", 12)),
+            ("wavlm-base-plus", True, None, ("K1b", 12)),
             ("MERT-v1-95M", True, None, ("K1", 12)),
             ("encodec-emb", False, fused, ("K4", 4)), ("encodec-emb", True, fused, ("K4b", 4)),
             ("encodec-emb-48k", False, None, None), ("encodec-emb-48k", True, None, None),
@@ -1472,12 +1586,13 @@ def pipeline_run(torch, kernels, work: Path, seconds: float, model_name: str, bf
 
 def pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -> dict:
     """Every ``--device-pipeline`` run; returns the launches of each kernel
-    summed over the runs that must launch it."""
+    summed over the runs that must launch it (K5 also in WavLM's gated form
+    alone, ``K5 gated``)."""
     # (model, bf16, env, argv, kernel that must launch 12 times a device batch)
-    runs = [("w2v2-base", False, None, (), None), ("w2v2-base", True, None, (), "K1"),
-            ("wavlm-base-plus", False, None, (), None),
+    runs = [("w2v2-base", False, None, (), "K5"), ("w2v2-base", True, None, (), "K1"),
+            ("wavlm-base-plus", False, None, (), "K5"),
             ("wavlm-base-plus", True, None, (), "K2"),
-            ("w2v2-base", False, {"FADTK_TPU_CKPT_FILES": "4"}, ("--batch", "4"), None)]
+            ("w2v2-base", False, {"FADTK_TPU_CKPT_FILES": "4"}, ("--batch", "4"), "K5")]
     totals = dict.fromkeys(KERNEL_KEYS, 0)
     for model_name, bf16, env, argv, kernel in runs:
         got = pipeline_run(torch, kernels, work, seconds, model_name, bf16, cached, env, argv)
@@ -1496,6 +1611,7 @@ def pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -> d
             totals["score w2v2-base"] = got["score"]
         if (model_name, bf16) == ("wavlm-base-plus", False):
             totals["K2 f32"] = got["K2"]
+            totals["K5 gated"] = got["K5"]
     return totals
 
 
@@ -2336,13 +2452,15 @@ def main() -> int:
         phase("kernel build")
         from concurrent.futures import ThreadPoolExecutor
 
+        from fadtk_tpu_torch.ops import attention_softmax as asm
         from fadtk_tpu_torch.ops import flash_attention as fa
         from fadtk_tpu_torch.ops import fused_log_mel as k3
         from fadtk_tpu_torch.ops import fused_resnet as fr
 
+        kernels = (fa, fr, k3, asm)
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
-            libs = list(pool.map(lambda m: m.library_path(), (fa, fr, k3)))
+        with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, started together
+            libs = list(pool.map(lambda m: m.library_path(), kernels))
         print(f"built {', '.join(str(lib.relative_to(REPO)) for lib in libs)} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for lib in libs:
@@ -2362,6 +2480,7 @@ def main() -> int:
         k4 = k4_path_checks(torch, fr)
         k3_entries = k3_path_checks(torch, k3)
         torch.cuda.empty_cache()
+        k5 = k5_checks(torch, asm)
 
         for model_name in ("w2v2-base", "wavlm-base-plus", "MERT-v1-95M"):
             phase(f"{model_name} f32: card vs cpu")
@@ -2451,27 +2570,27 @@ def main() -> int:
 
         phase("convert: convert_cli --dry-run on every recorded schema; dac-44kHz and "
               "clap-laion-music converted from seeded checkpoints, card vs cpu")
-        convert_checks(torch, (fa, fr, k3), work)
+        convert_checks(torch, kernels, work)
         torch.cuda.empty_cache()
 
         phase("main paths: CLI w2v2-base, wavlm-base-plus, encodec-emb, encodec-emb-48k, "
               "dac-44kHz, whisper-base, vggish, clap-laion-music, clap-2023, cdpam-acoustic f32 "
               "and --bf16; MERT --bf16")
-        launches, cached, seconds = cli_runs(torch, (fa, fr, k3), work)
+        launches, cached, seconds = cli_runs(torch, kernels, work)
 
         phase("device pipeline: CLI --device-pipeline w2v2-base, wavlm-base-plus f32 and --bf16, "
               "w2v2-base --batch 4 with checkpoints")
-        pipeline = pipeline_runs(torch, (fa, fr, k3), work, cached, seconds)
+        pipeline = pipeline_runs(torch, kernels, work, cached, seconds)
 
         phase("device pipeline, chunked and whole-clip: CLI --device-pipeline vggish, "
               "whisper-base (f32 and --bf16), clap-laion-music, clap-2023, dac-44kHz, "
               "encodec-emb-48k, encodec-emb with the fused block (f32 and --bf16), "
               "cdpam-acoustic")
-        dp_pipeline = dp_pipeline_runs(torch, (fa, fr, k3), work, cached, seconds)
+        dp_pipeline = dp_pipeline_runs(torch, kernels, work, cached, seconds)
 
         phase("device transport: --device-pipeline with FADTK_TPU_CONVERT_TRANSPORT=device "
               "(w2v2-base --bf16, whisper-base) against the host transport")
-        transport = transport_runs(torch, (fa, fr, k3), work)
+        transport = transport_runs(torch, kernels, work)
         phase("multihost: torch.distributed.run -m fadtk_tpu_torch w2v2-base --device-pipeline "
               "--multihost")
         multihost_check(work, pipeline["score w2v2-base"])
@@ -2488,7 +2607,7 @@ def main() -> int:
         del w2v2
 
         phase("scoring: CLI --inf / --indiv, host and --device-scoring, on w2v2-base's cache")
-        scoring_checks(torch, (fa, fr, k3), work)
+        scoring_checks(torch, kernels, work)
         phase("python -m fadtk_tpu_torch.test: the golden-score harness on w2v2-base")
         harness_check(work, cached)
         phase("python -m fadtk_tpu_torch.embeds: 12 MERT-v1-95M variants, one forward per file")
@@ -2575,6 +2694,24 @@ def main() -> int:
              "launches_by_path": {"device pipeline f32 runs (no caller: WavLM's f32 attention "
                                   "stays dense)": pipeline["K2 f32"]},
              **k2_f32},
+            {"name": "attention_softmax (f32, WavLM's gated bias; B=16 T=2999 H=16, T=499 "
+             "beside)", "route": "cuda", "source": "fadtk_tpu_torch/csrc/attention_softmax.cu",
+             "replaces": "none: port-only (XLA fuses the bias and softmax of "
+                         "fadtk_tpu/models/speech/encoder.py::_attention_core)",
+             "launches": cached["wavlm-base-plus"]["K5"] + pipeline["K5 gated"],
+             "launches_by_path": {"cached": cached["wavlm-base-plus"]["K5"],
+                                  "device_pipeline": pipeline["K5 gated"]},
+             **k5["gated"]},
+            {"name": "attention_softmax (f32, key mask alone; B=16 T=2999 H=12, T=499 beside)",
+             "route": "cuda", "source": "fadtk_tpu_torch/csrc/attention_softmax.cu",
+             "replaces": "none: port-only (XLA fuses the bias and softmax of "
+                         "fadtk_tpu/models/speech/encoder.py::_attention_core)",
+             "launches": launches["K5"] - cached["wavlm-base-plus"]["K5"]
+             + pipeline["K5"] - pipeline["K5 gated"],
+             "launches_by_path": {
+                 "cached": launches["K5"] - cached["wavlm-base-plus"]["K5"],
+                 "device_pipeline": pipeline["K5"] - pipeline["K5 gated"]},
+             **k5["key mask"]},
         ]}))
     except Exception:
         traceback.print_exc()

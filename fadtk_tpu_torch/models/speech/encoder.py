@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.attention_softmax import attention_softmax, dense_gated_bias
 from ...runner import profiling
 from ..base import row_sharded_linear
 from ..precision import gelu
@@ -232,17 +233,25 @@ def _split_heads(x, num_heads):
     return x.reshape(b, t, num_heads, h // num_heads).transpose(1, 2)
 
 
-def _attention_core(q, k, v, bias):
-    """q, k, v: (B, H, T, D); bias: additive, broadcastable to (B, H, T, T).
+def _attention_core(q, k, v, bias, gate=None, position_bias=None):
+    """q, k, v: (B, H, T, D); bias: additive, broadcastable to (B, H, T, T),
+    or, with WavLM's ``gate`` (B, T, H) and ``position_bias`` (H, T, T), the
+    key mask (B, 1, 1, T) to which ``gate ⊙ position_bias`` adds
+    (``ops.attention_softmax.dense_gated_bias``).
 
     Logits and softmax stay float32 (bf16 inputs multiply exactly in f32, so
-    this is the bf16-in / f32-accumulate product of the JAX path).
+    this is the bf16-in / f32-accumulate product of the JAX path). The bias
+    and the softmax are ``ops.attention_softmax``: on a CUDA tensor one pass
+    of the hand-written kernel over the logits, in place, launched here with
+    no program range of its own, so that a profiler range around this
+    function holds it; on the CPU, its twin's torch composition.
     """
     scale = q.shape[-1] ** -0.5
     logits = (q * scale).float() @ k.float().transpose(-1, -2)
-    logits = logits + bias.float()
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = (w.float() @ v.float()).to(v.dtype)
+    bias, gate, position_bias = (None if y is None else y.float()
+                                 for y in (bias, gate, position_bias))
+    w = attention_softmax(logits, bias, gate, position_bias)
+    out = (w.to(v.dtype).float() @ v.float()).to(v.dtype)
     b, h, t, d = out.shape
     return out.transpose(1, 2).reshape(b, t, h * d)
 
@@ -347,10 +356,11 @@ def wavlm_gated_bias(cfg: SpeechEncoderConfig, p: Attention, x, position_bias, k
     The gate is computed in the compute dtype from the *unprojected* per-head
     hidden states of ``x`` (B, T, H_all * head_dim): proj -> (..., 2, 4).sum(-1)
     -> sigmoid -> a * (b * const - 1) + 2. Returns it as (B, T, Hl), the
-    layout the flash kernels read, and with ``dense`` the additive attention
-    bias ``key_bias + gate ⊙ position_bias``, (B, Hl, T, T), of the plain
-    path; without, None (the kernels add gate ⊙ bias per tile and build no
-    dense term). Traced as the span ``model.gated_bias`` and the counter
+    layout the kernels read, and with ``dense`` the additive attention bias
+    ``key_bias + gate ⊙ position_bias``, (B, Hl, T, T), of the plain path on
+    the CPU; without, None (the flash kernels, and the plain path's softmax
+    kernel on the card, add gate ⊙ bias in registers and build no dense
+    term). Traced as the span ``model.gated_bias`` and the counter
     ``model.gated_bias_bytes`` (the dense bias's bytes, from its shape).
     """
     with profiling.stage("model.gated_bias"):
@@ -374,7 +384,7 @@ def _wavlm_gate_and_bias(cfg, p: Attention, x, position_bias, key_bias, first_he
     gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # (B, T, Hl)
     if not dense:
         return gate, None
-    return gate, key_bias + gate.transpose(1, 2)[..., None] * position_bias[None]
+    return gate, dense_gated_bias(key_bias, gate, position_bias)
 
 
 def wavlm_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, position_bias,
@@ -391,8 +401,10 @@ def wavlm_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, positio
     float32 for it. The kernel is K1b (``flash_attention_packed``) on the
     projection layout, or with ``head_major`` K2 (``flash_attention``) on
     the head-split views, as the JAX package's tp step routes it. float32
-    always takes the plain dense path, whatever ``FADTK_TPU_FLASH_F32``
-    says, as the JAX package does (its routing call passes no length).
+    always takes the plain path ``_attention_core``, whatever
+    ``FADTK_TPU_FLASH_F32`` says, as the JAX package does (its routing call
+    passes no length). On the card that path adds the factorized gate and
+    table inside its softmax kernel; on the CPU it takes the dense bias.
     """
     heads = p.q_proj.weight.shape[0] // cfg.head_dim
     q = p.q_proj(x)
@@ -400,7 +412,7 @@ def wavlm_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, positio
     v = p.v_proj(x)
     flash = use_flash_attention(x.dtype, frame_valid, None, x.device)  # no length: bf16 only
     gate, bias = wavlm_gated_bias(cfg, p, x, position_bias, key_bias, first_head=first_head,
-                                  dense=not flash)
+                                  dense=not (flash or x.is_cuda))
     if flash and head_major:
         from ...ops.flash_attention import flash_attention
 
@@ -416,8 +428,11 @@ def wavlm_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, positio
             num_heads=heads,
         )
     else:
-        qh, kh, vh = (_split_heads(y, heads) for y in (q, k, v))
-        out = _attention_core(qh, kh, vh, bias)
+        qkv = (_split_heads(y, heads) for y in (q, k, v))
+        if bias is None:
+            out = _attention_core(*qkv, key_bias, gate, position_bias)
+        else:
+            out = _attention_core(*qkv, bias)
     return row_sharded_linear(p.out_proj, out, tp_group)
 
 
