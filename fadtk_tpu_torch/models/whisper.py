@@ -6,7 +6,8 @@ Port of ``fadtk_tpu/models/whisper.py`` (reference fadtk/model_loader.py:636-672
 (``dsp/mel.py::whisper_log_mel``, float32, one launch of the fused log-mel
 kernel per batch on the card) feeds a full seq2seq forward with two forced
 decoder-start tokens, whose decoder last_hidden_state is the embedding:
-exactly 2 frames per clip.
+exactly 2 frames per clip. The frontend is traced as the span
+``model.frontend`` (``runner/profiling.py``).
 """
 
 from __future__ import annotations
@@ -17,11 +18,20 @@ import numpy as np
 import torch
 
 from ..dsp.mel import WHISPER_SAMPLES, whisper_log_mel
+from ..runner import profiling
 from ..utils import log, resolve_device
 from .base import EmbeddingModel
 from .whisper_impl import Whisper, config_for_size, init_whisper_params, whisper_forward
 
 _DIMS = {"tiny": 384, "base": 512, "small": 768, "medium": 1024, "large": 1280}
+
+
+def whisper_embed(module: Whisper, audio: torch.Tensor) -> torch.Tensor:
+    """(B, 480000) windows on the device -> (B, 2, d) float32: the log-mel
+    frontend, then ``whisper_forward``."""
+    with profiling.stage("model.frontend"):
+        feats = whisper_log_mel(audio)
+    return whisper_forward(module, feats)
 
 
 class WhisperModel(EmbeddingModel):
@@ -77,7 +87,7 @@ class WhisperModel(EmbeddingModel):
     def _forward_clips(self, clips: np.ndarray) -> np.ndarray:
         """(B, 480000) host windows -> (B, 2, d) host float32."""
         audio = torch.from_numpy(np.ascontiguousarray(clips, np.float32)).to(self.device)
-        return whisper_forward(self.module, whisper_log_mel(audio)).cpu().numpy()
+        return whisper_embed(self.module, audio).cpu().numpy()
 
     def _embed(self, audio: np.ndarray) -> np.ndarray:
         return self._forward_clips(self._make_chunk(np.asarray(audio))[None])[0]
@@ -100,7 +110,7 @@ class WhisperModel(EmbeddingModel):
 
         self.ensure_loaded()
         return DpChunkSpec(
-            forward=lambda clips: whisper_forward(self.module, whisper_log_mel(clips)),
+            forward=lambda clips: whisper_embed(self.module, clips),
             make_chunks=lambda clip: (self._make_chunk(np.asarray(clip))[None],),
             num_features=self.num_features,
             preferred_batch=self.BATCH,

@@ -19,6 +19,17 @@ LayerNorm statistics stay float32. Attention is plain torch (matmul,
 softmax) with logits in the compute dtype, as the JAX package does: it
 measured that no fused kernel pays here (fadtk_tpu/models/whisper_impl.py,
 ``_attention``), so the flash kernel is not on this path.
+
+Traced (``runner/profiling.py``) as the spans ``model.attention`` and
+``model.ffn`` in every encoder and decoder layer, ``model.cross_attention``
+in every decoder layer, ``model.decoder`` around the decoder, and the
+counter ``model.windows`` (+B a forward). Each span opens around a function
+that does the stage's whole work and opens no span of its own
+(``_encoder_attention``, ``_feed_forward``, ``_decoder_attention``,
+``_cross_attention``, ``_decoder_feed_forward``; the encoder's q·kᵀ,
+softmax and p·v are ``_encoder_attention_core``), so that a profiler range
+around one of them holds its kernels: a kernel belongs to the innermost
+range it was launched in.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..runner import profiling
 from .base import row_sharded_linear
 from .precision import gelu
 
@@ -147,12 +159,13 @@ def _ln(x: torch.Tensor, ln: nn.LayerNorm, eps: float) -> torch.Tensor:
 
 
 def _attention(p: Attention, x: torch.Tensor, kv: torch.Tensor, num_heads: int,
-               causal: bool = False, tp_group=None) -> torch.Tensor:
+               causal: bool = False, tp_group=None, core=None) -> torch.Tensor:
     """Whisper attention, logits and softmax in the compute dtype; kv is x
     for self-attention. k_proj has no bias. ``num_heads`` is the model's;
     ``p`` holds all of them or a tensor-parallel shard's
     (``parallel/whisper_tp.py``), whose out_proj partial sums ``tp_group``
-    adds up."""
+    adds up. ``core`` computes softmax(q kᵀ) v (default
+    ``_attention_core``)."""
     b, tq, d = x.shape
     tk = kv.shape[1]
     hd = d // num_heads
@@ -164,17 +177,61 @@ def _attention(p: Attention, x: torch.Tensor, kv: torch.Tensor, num_heads: int,
     q = split(p.q_proj(x), tq) * (hd ** -0.5)
     k = split(p.k_proj(kv), tk)
     v = split(p.v_proj(kv), tk)
-    logits = q @ k.transpose(-1, -2)
-    if causal:
-        mask = torch.ones((tq, tk), dtype=torch.bool, device=x.device).tril()
-        logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
-    w = torch.softmax(logits, dim=-1)
-    out = (w @ v).transpose(1, 2).reshape(b, tq, heads * hd)
+    out = (core or _attention_core)(q, k, v, causal)
+    out = out.transpose(1, 2).reshape(b, tq, heads * hd)
     return row_sharded_linear(p.out_proj, out, tp_group)
 
 
-def _feed_forward(p: nn.ModuleDict, x: torch.Tensor, tp_group=None) -> torch.Tensor:
-    return row_sharded_linear(p["fc2"], gelu(p["fc1"](x)), tp_group)
+def _attention_core(q, k, v, causal: bool = False) -> torch.Tensor:
+    """softmax(q kᵀ) v over (B, H, T, hd) heads, q already scaled; a causal
+    mask lets query t see keys up to t."""
+    logits = q @ k.transpose(-1, -2)
+    if causal:
+        tq, tk = logits.shape[-2:]
+        mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+    return torch.softmax(logits, dim=-1) @ v
+
+
+def _encoder_attention_core(q, k, v, causal: bool = False) -> torch.Tensor:
+    """The encoder's ``_attention_core``, under a name of its own: a range
+    around it holds the encoder's q·kᵀ, softmax and p·v, none of the
+    decoder's."""
+    return _attention_core(q, k, v, causal)
+
+
+def _encoder_attention(cfg: WhisperConfig, p: nn.ModuleDict, x, tp_group=None):
+    """x + self-attention(LN(x)) in an encoder layer."""
+    h = _ln(x, p["self_attn_layer_norm"], cfg.layer_norm_eps)
+    return x + _attention(p["self_attn"], h, h, cfg.encoder_heads, tp_group=tp_group,
+                          core=_encoder_attention_core)
+
+
+def _feed_forward(cfg: WhisperConfig, p: nn.ModuleDict, x, tp_group=None):
+    """x + fc2(GELU(fc1(LN(x)))): an encoder layer's feed-forward."""
+    h = _ln(x, p["final_layer_norm"], cfg.layer_norm_eps)
+    return x + row_sharded_linear(p["fc2"], gelu(p["fc1"](h)), tp_group)
+
+
+def _decoder_attention(cfg: WhisperConfig, p: nn.ModuleDict, x, tp_group=None):
+    """x + causal self-attention(LN(x)) in a decoder layer."""
+    h = _ln(x, p["self_attn_layer_norm"], cfg.layer_norm_eps)
+    return x + _attention(p["self_attn"], h, h, cfg.decoder_heads, causal=True,
+                          tp_group=tp_group)
+
+
+def _cross_attention(cfg: WhisperConfig, p: nn.ModuleDict, x, enc_states, tp_group=None):
+    """x + attention(LN(x)) onto the encoder states in a decoder layer: its
+    k and v project all of them."""
+    h = _ln(x, p["encoder_attn_layer_norm"], cfg.layer_norm_eps)
+    return x + _attention(p["encoder_attn"], h, enc_states, cfg.decoder_heads,
+                          tp_group=tp_group)
+
+
+def _decoder_feed_forward(cfg: WhisperConfig, p: nn.ModuleDict, x, tp_group=None):
+    """A decoder layer's ``_feed_forward``, under a name of its own so that
+    a range around it holds none of the encoder's kernels."""
+    return _feed_forward(cfg, p, x, tp_group)
 
 
 def whisper_encode(model: Whisper, input_features: torch.Tensor,
@@ -183,15 +240,15 @@ def whisper_encode(model: Whisper, input_features: torch.Tensor,
     holds one tp rank's shard sums its row-parallel projections over
     ``tp_group``."""
     cfg, enc = model.cfg, model.encoder
-    eps = cfg.layer_norm_eps
     x = gelu(enc.conv1(input_features))
     x = gelu(enc.conv2(x)).transpose(1, 2)  # (B, 1500, d)
     x = x + enc.embed_positions[None, : x.shape[1]]
     for p in enc.layers:
-        h = _ln(x, p["self_attn_layer_norm"], eps)
-        x = x + _attention(p["self_attn"], h, h, cfg.encoder_heads, tp_group=tp_group)
-        x = x + _feed_forward(p, _ln(x, p["final_layer_norm"], eps), tp_group)
-    return _ln(x, enc.layer_norm, eps)
+        with profiling.stage("model.attention"):
+            x = _encoder_attention(cfg, p, x, tp_group)
+        with profiling.stage("model.ffn"):
+            x = _feed_forward(cfg, p, x, tp_group)
+    return _ln(x, enc.layer_norm, cfg.layer_norm_eps)
 
 
 def whisper_decode(model: Whisper, token_ids: torch.Tensor, enc_states: torch.Tensor,
@@ -199,16 +256,15 @@ def whisper_decode(model: Whisper, token_ids: torch.Tensor, enc_states: torch.Te
     """(B, T) tokens + encoder states -> (B, T, d) decoder last hidden state;
     ``tp_group`` as in ``whisper_encode``."""
     cfg, dec = model.cfg, model.decoder
-    eps = cfg.layer_norm_eps
     x = dec.embed_tokens[token_ids] + dec.embed_positions[None, : token_ids.shape[1]]
     for p in dec.layers:
-        h = _ln(x, p["self_attn_layer_norm"], eps)
-        x = x + _attention(p["self_attn"], h, h, cfg.decoder_heads, causal=True,
-                           tp_group=tp_group)
-        x = x + _attention(p["encoder_attn"], _ln(x, p["encoder_attn_layer_norm"], eps),
-                           enc_states, cfg.decoder_heads, tp_group=tp_group)
-        x = x + _feed_forward(p, _ln(x, p["final_layer_norm"], eps), tp_group)
-    return _ln(x, dec.layer_norm, eps)
+        with profiling.stage("model.attention"):
+            x = _decoder_attention(cfg, p, x, tp_group)
+        with profiling.stage("model.cross_attention"):
+            x = _cross_attention(cfg, p, x, enc_states, tp_group)
+        with profiling.stage("model.ffn"):
+            x = _decoder_feed_forward(cfg, p, x, tp_group)
+    return _ln(x, dec.layer_norm, cfg.layer_norm_eps)
 
 
 def whisper_forward(model: Whisper, input_features: torch.Tensor,
@@ -216,14 +272,19 @@ def whisper_forward(model: Whisper, input_features: torch.Tensor,
     """The reference's embedding forward: 2 forced start tokens -> (B, 2, d)
     float32 decoder states (fadtk/model_loader.py:662,669). The features
     move to the weights' device and dtype (the frontend is float32 in both
-    precision modes). ``tp_group`` as in ``whisper_encode``."""
+    precision modes). ``tp_group`` as in ``whisper_encode``. Counts its B
+    windows under ``model.windows``; the decoder is the span
+    ``model.decoder``."""
     w = model.encoder.conv1.weight
     input_features = input_features.to(device=w.device, dtype=w.dtype)
-    enc_states = whisper_encode(model, input_features, tp_group)
     b = input_features.shape[0]
+    profiling.count("model.windows", b)
+    enc_states = whisper_encode(model, input_features, tp_group)
     tokens = torch.full((b, 2), model.cfg.decoder_start_token_id, dtype=torch.long,
                         device=w.device)
-    return whisper_decode(model, tokens, enc_states, tp_group).float()
+    with profiling.stage("model.decoder"):
+        out = whisper_decode(model, tokens, enc_states, tp_group)
+    return out.float()
 
 
 # --------------------------------------------------------------------------- #
