@@ -63,6 +63,13 @@ Phases:
      w2v2-base's key-mask form (H=12), ragged n_valid, against its twin,
      the torch composition it replaced (no single library call computes
      it), every row summing to 1 and every padded key exactly 0;
+   - K6, the float32 projection as 3xTF32 on wgmma: Whisper-large's fc1,
+     fc2 and q (B=16 windows, 24000 rows) and WavLM-large's and
+     w2v2-base's FFN (the 60 s bucket, 47984 rows), its max and RMS error
+     against a float64 product at most twice cuBLAS float32's (TF32 off),
+     its time beside cuBLAS's sgemm (its twin on the card and the
+     ``library_ms``) and the 3xTF32 bound; the main-path runs below then
+     count its launches (``k6_per_forward``);
 4. full-width forwards (random weights from a seed) of w2v2-base,
    wavlm-base-plus and MERT-v1-95M (24 kHz, T=749): f32 on the card against
    f32 on the CPU, same weights, one 10 s clip; for w2v2-base then one f32
@@ -557,6 +564,62 @@ def k5_checks(torch, asm) -> dict:
     return {form: {**check_attention_softmax(torch, asm, 2999, heads, gated),
                    "t499": check_attention_softmax(torch, asm, 499, heads, gated)}
             for form, heads, gated in (("gated", 16, True), ("key mask", 12, False))}
+
+
+def check_linear_f32(torch, k6, label: str, m: int, k: int, n: int) -> dict:
+    """K6 at x (m, k) . W (n, k)ᵀ + bias, W ~ U(±1/√k) as the models draw it,
+    x ~ N(0, 1): its max and RMS error against a float64 product, relative to
+    the largest |y|, beside cuBLAS float32's (TF32 off), each at most twice
+    cuBLAS's; one launch. Times the kernel, its twin (``F.linear``, on the
+    card the same cuBLAS sgemm, the port's path before K6, so it is also
+    ``library_ms``), and the bound: 3 x 2mnk at the TF32 rate, against the
+    bytes of x, W, its TF32 remainder, the bias and y."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + m + k + n)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = (torch.rand((n, k), generator=g, device=dev) * 2 - 1) / k ** 0.5
+    b = torch.randn((n,), generator=g, device=dev) * 0.1
+    want = torch.nn.functional.linear(x.double(), w.double(), b.double())
+    scale = want.abs().max().item()
+
+    def errors(y):
+        d = y.double() - want
+        return d.abs().max().item() / scale, d.square().mean().sqrt().item() / scale
+
+    before = k6.linear_f32.launches
+    got = k6.linear_f32(x, w, b)
+    torch.cuda.synchronize()
+    if k6.linear_f32.launches != before + 1:
+        raise AssertionError(f"K6 {label}: not one launch")
+    err, lib_err = errors(got), errors(torch.nn.functional.linear(x, w, b))
+    del want, got
+    ms = cuda_ms(torch, lambda: k6.linear_f32(x, w, b), runs=10)
+    library_ms = cuda_ms(torch, lambda: torch.nn.functional.linear(x, w, b), runs=10)
+    flops = 2 * m * n * k
+    bound = _roofline(flops, 4 * (m * k + 2 * n * k + n + m * n), "float32")
+    print(f"K6 {label} M={m} K={k} N={n}: max_err {err[0]:.3e} rms {err[1]:.3e} (cuBLAS f32 "
+          f"{lib_err[0]:.3e} / {lib_err[1]:.3e}); kernel={ms:.4f} ms twin=library={library_ms:.4f}"
+          f" ms (x{library_ms / ms:.2f}); bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']} (3xTF32), {100 * bound['bound_ms'] / ms:.1f}% of it; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    del x, w, b
+    torch.cuda.empty_cache()
+    if not (err[0] <= 2 * lib_err[0] and err[1] <= 2 * lib_err[1]):
+        raise AssertionError(f"K6 {label}: error {err} against cuBLAS's {lib_err}")
+    return {"max_err": err[0], "rms_err": err[1], "library_max_err": lib_err[0],
+            "library_rms_err": lib_err[1], "ms": ms, "plain_ms": library_ms,
+            "library_ms": library_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"]}
+
+
+def k6_checks(torch, k6) -> dict:
+    """K6 at Whisper-large's fc1, fc2 and q (B=16 windows of 1500 frames) and
+    WavLM-large's and w2v2-base's FFN (the 60 s bucket, 16 x 2999 frames)."""
+    return {label: check_linear_f32(torch, k6, label, m, k, n) for label, m, k, n in (
+        ("whisper-large fc1", 24000, 1280, 5120), ("whisper-large fc2", 24000, 5120, 1280),
+        ("whisper-large q", 24000, 1280, 1280), ("wavlm-large intermediate", 47984, 1024, 4096),
+        ("wavlm-large output", 47984, 4096, 1024), ("w2v2-base intermediate", 47984, 768, 3072),
+        ("w2v2-base output", 47984, 3072, 768))}
 
 
 def resnet_bound(b: int, c: int, t: int, dtype: str) -> dict:
@@ -1373,26 +1436,50 @@ def cli_run(torch, kernels, work: Path, seconds: float, model_name: str, bf16: b
     return {**launches, "forwards": n_forwards, "rate": seconds / embed_s, "score": score}
 
 
-KERNEL_KEYS = ("K1", "K1b", "K4", "K4b", "K3", "K3f", "K2", "K2g", "K5")
+KERNEL_KEYS = ("K1", "K1b", "K4", "K4b", "K3", "K3f", "K2", "K2g", "K5", "K6")
+
+
+def k6_per_forward(model_name: str, bf16: bool) -> int:
+    """K6 launches in one float32 device forward of the main-path runs, whose
+    batches all pass ``ops/linear_f32.py::MIN_ROWS`` (at least 4 clips of 499
+    frames; a window's 1500 encoder states): a speech encoder's feature
+    projection and six a layer (q, k, v, out and the FFN's two; WavLM's
+    8-wide gate stays on cuBLAS); Whisper's six an encoder layer and two a
+    decoder layer (the cross-attention's k and v over the encoder states; the
+    decoder's 2-token rows stay on cuBLAS). None under bf16 or in the other
+    families."""
+    from fadtk_tpu_torch.models.registry import get_model
+    from fadtk_tpu_torch.models.speech.family import SpeechEmbeddingModel
+
+    model = get_model(model_name)
+    if bf16:
+        return 0
+    if model_name.startswith("whisper-"):
+        return 6 * model.cfg.encoder_layers + 2 * model.cfg.decoder_layers
+    if isinstance(model, SpeechEmbeddingModel):
+        return 1 + 6 * model.cfg.num_layers
+    return 0
 
 
 def reset_counts(kernels) -> None:
     """Every kernel launch count to 0."""
-    fa, fr, k3, asm = kernels
+    fa, fr, k3, asm, k6 = kernels
     fa.flash_attention_packed.launches = fa.flash_attention_packed.bias_launches = 0
     fa.flash_attention.launches = fa.flash_attention.bias_launches = 0
     fa.flash_attention.grouped_launches = 0
     fr.fused_resnet_causal.launches = fr.fused_resnet_causal.bf16_launches = 0
     k3.fused_log_mel.launches = k3.fused_log_mel.fft_launches = 0
     asm.attention_softmax.launches = 0
+    k6.linear_f32.launches = 0
 
 
 def read_counts(kernels) -> dict:
     """The launch counts by kernel; K4 is the float32 SEANet block, K4b its
     bf16 tensor-core form; K2 is the per-head grid (with or without bias,
     ``flash_attention.py:490``), K2g the grouped one (:422); K5 the float32
-    attention's bias and softmax, gated or with the key mask alone."""
-    fa, fr, k3, asm = kernels
+    attention's bias and softmax, gated or with the key mask alone; K6 the
+    float32 projection."""
+    fa, fr, k3, asm, k6 = kernels
     return {"K1": fa.flash_attention_packed.launches,
             "K1b": fa.flash_attention_packed.bias_launches,
             "K4": fr.fused_resnet_causal.launches,
@@ -1401,7 +1488,8 @@ def read_counts(kernels) -> dict:
             "K3f": k3.fused_log_mel.fft_launches,
             "K2": fa.flash_attention.launches + fa.flash_attention.bias_launches,
             "K2g": fa.flash_attention.grouped_launches,
-            "K5": asm.attention_softmax.launches}
+            "K5": asm.attention_softmax.launches,
+            "K6": k6.linear_f32.launches}
 
 
 def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
@@ -1436,6 +1524,7 @@ def cli_runs(torch, kernels, work: Path) -> tuple[dict, dict, float]:
         got = cli_run(torch, kernels, work, seconds, model_name, bf16, env)
         cached[model_name + ("-bf16" if bf16 else "")] = got
         want = dict.fromkeys(KERNEL_KEYS, 0)
+        want["K6"] = k6_per_forward(model_name, bf16) * got["forwards"]
         if kernel:
             want[kernel[0]] = kernel[1] * got["forwards"]
         if {k: got[k] for k in want} != want:
@@ -1598,6 +1687,7 @@ def pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -> d
         got = pipeline_run(torch, kernels, work, seconds, model_name, bf16, cached, env, argv)
         batches = 2 * (16 // (4 if argv else 16))  # two datasets of 16 clips
         want = dict.fromkeys(KERNEL_KEYS, 0)
+        want["K6"] = k6_per_forward(model_name, bf16) * batches
         if kernel:
             want[kernel] = 12 * batches
         if {k: got[k] for k in want} != want or got["batches"] != batches:
@@ -1684,6 +1774,7 @@ def dp_pipeline_runs(torch, kernels, work: Path, cached: dict, seconds: float) -
                        for f in sorted((work / ds / "convert" / str(model.sr)).glob("*.wav"))]
             forwards += pipeline_forwards(model, lengths)
         want = dict.fromkeys(KERNEL_KEYS, 0)
+        want["K6"] = k6_per_forward(model_name, bf16) * forwards
         if kernel:
             want[kernel[0]] = kernel[1] * forwards
         print(f"[pipeline {model_name} bf16={bf16}] {forwards} device forwards predicted; "
@@ -1883,6 +1974,7 @@ def transport_runs(torch, kernels, work: Path) -> dict:
                 forwards += (-(-len(lengths) // 16) if kernel[0] == "K1"
                              else pipeline_forwards(model, lengths))
             want = dict.fromkeys(KERNEL_KEYS, 0)
+            want["K6"] = k6_per_forward(model_name, bf16) * forwards
             want[kernel[0]] = kernel[1] * forwards
             launches = got["device"]["launches"]
             if {k: launches[k] for k in want} != want:
@@ -2456,8 +2548,9 @@ def main() -> int:
         from fadtk_tpu_torch.ops import flash_attention as fa
         from fadtk_tpu_torch.ops import fused_log_mel as k3
         from fadtk_tpu_torch.ops import fused_resnet as fr
+        from fadtk_tpu_torch.ops import linear_f32 as k6
 
-        kernels = (fa, fr, k3, asm)
+        kernels = (fa, fr, k3, asm, k6)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source, started together
             libs = list(pool.map(lambda m: m.library_path(), kernels))
@@ -2481,6 +2574,8 @@ def main() -> int:
         k3_entries = k3_path_checks(torch, k3)
         torch.cuda.empty_cache()
         k5 = k5_checks(torch, asm)
+        torch.cuda.empty_cache()
+        k6_entries = k6_checks(torch, k6)
 
         for model_name in ("w2v2-base", "wavlm-base-plus", "MERT-v1-95M"):
             phase(f"{model_name} f32: card vs cpu")
@@ -2712,6 +2807,14 @@ def main() -> int:
                  "cached": launches["K5"] - cached["wavlm-base-plus"]["K5"],
                  "device_pipeline": pipeline["K5"] - pipeline["K5 gated"]},
              **k5["key mask"]},
+            {"name": "linear_f32 (f32 projection, 3xTF32 wgmma; Whisper-large fc1, other "
+             "shapes beside)", "route": "cuda", "source": "fadtk_tpu_torch/csrc/linear_f32.cu",
+             "replaces": "none: port-only (XLA does the JAX package's dots)",
+             "launches": launches["K6"] + pipeline["K6"] + dp_pipeline["K6"] + transport["K6"],
+             "launches_by_path": {"cached": launches["K6"],
+                                  "device_pipeline": pipeline["K6"] + dp_pipeline["K6"],
+                                  "device_transport": transport["K6"]},
+             **k6_entries.pop("whisper-large fc1"), "shapes": k6_entries},
         ]}))
     except Exception:
         traceback.print_exc()

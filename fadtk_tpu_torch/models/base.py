@@ -21,6 +21,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..ops import linear_f32 as k6
+from ..runner import profiling
 from ..utils import PathLike, log
 
 
@@ -60,14 +62,33 @@ def cast_module(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
     return flatten_lstm_weights(module.to(dtype))
 
 
+def linear(lin: torch.nn.Linear, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+    """``lin(x)`` (without its bias if not ``bias``) for a model's projection:
+    the one point that routes the speech encoders' and Whisper's
+    projections. A float32 product on the card with enough rows
+    (``ops.linear_f32.takes``) goes to the 3xTF32 kernel K6, anything else
+    (the CPU, bf16, Whisper's 2-token decoder rows, WavLM's 8-wide gate) to
+    ``F.linear``. Counted, from shapes, as ``model.linear_kernel_flop`` or
+    ``model.linear_plain_flop`` (2·M·N·K)."""
+    weight, b = lin.weight, lin.bias if bias else None
+    n, k = weight.shape
+    flop = 2 * (x.numel() // k) * n * k
+    if k6.takes(x, weight):
+        profiling.count("model.linear_kernel_flop", flop)
+        return k6.linear_f32(x, weight, b)
+    profiling.count("model.linear_plain_flop", flop)
+    return F.linear(x, weight, b)
+
+
 def row_sharded_linear(lin: torch.nn.Linear, x: torch.Tensor, group=None) -> torch.Tensor:
     """``lin(x)`` for a projection whose input features are split over the
     tensor-parallel ``group`` (the row-parallel cut of ``parallel/``): the
     ranks' partial products are summed over the group, then the whole bias
-    is added once. Without a group (one rank), the plain fused-bias call."""
+    is added once. Without a group (one rank), the plain fused-bias call.
+    Both go through ``linear``."""
     if group is None:
-        return lin(x)
-    y = F.linear(x, lin.weight)
+        return linear(lin, x)
+    y = linear(lin, x, bias=False)
     dist.all_reduce(y, group=group)
     return y + lin.bias
 

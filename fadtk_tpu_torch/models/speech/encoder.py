@@ -33,7 +33,7 @@ from torch import nn
 
 from ...ops.attention_softmax import attention_softmax, dense_gated_bias
 from ...runner import profiling
-from ..base import row_sharded_linear
+from ..base import linear, row_sharded_linear
 from ..precision import gelu
 from .config import SpeechEncoderConfig
 
@@ -291,9 +291,7 @@ def standard_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, fram
     holds: all of them, or a tensor-parallel shard's (``parallel/tp.py``),
     whose out_proj partial sums ``tp_group`` adds up."""
     heads = p.q_proj.weight.shape[0] // cfg.head_dim
-    q = p.q_proj(x)
-    k = p.k_proj(x)
-    v = p.v_proj(x)
+    q, k, v = (linear(lin, x) for lin in (p.q_proj, p.k_proj, p.v_proj))
     if use_flash_attention(x.dtype, frame_valid, x.shape[1], x.device):
         # Packed-heads kernel: consumes the projection layout directly, no
         # (B, H, T, D) transposes.
@@ -378,7 +376,7 @@ def _wavlm_gate_and_bias(cfg, p: Attention, x, position_bias, key_bias, first_he
     b, t, _ = x.shape
     heads = p.gru_rel_pos_const.shape[0]
     hs = x.reshape(b, t, -1, cfg.head_dim)[:, :, first_head:first_head + heads]
-    proj = p.gru_rel_pos_linear(hs).reshape(b, t, heads, 2, 4).sum(-1)
+    proj = linear(p.gru_rel_pos_linear, hs).reshape(b, t, heads, 2, 4).sum(-1)
     gates = torch.sigmoid(proj)
     const = p.gru_rel_pos_const.reshape(1, 1, heads)
     gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # (B, T, Hl)
@@ -407,9 +405,7 @@ def wavlm_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, positio
     table inside its softmax kernel; on the CPU it takes the dense bias.
     """
     heads = p.q_proj.weight.shape[0] // cfg.head_dim
-    q = p.q_proj(x)
-    k = p.k_proj(x)
-    v = p.v_proj(x)
+    q, k, v = (linear(lin, x) for lin in (p.q_proj, p.k_proj, p.v_proj))
     flash = use_flash_attention(x.dtype, frame_valid, None, x.device)  # no length: bf16 only
     gate, bias = wavlm_gated_bias(cfg, p, x, position_bias, key_bias, first_head=first_head,
                                   dense=not (flash or x.is_cuda))
@@ -442,7 +438,8 @@ def wavlm_attention(cfg: SpeechEncoderConfig, p: Attention, x, key_bias, positio
 
 
 def _feed_forward(p: nn.ModuleDict, x, tp_group=None):
-    return row_sharded_linear(p["output_dense"], gelu(p["intermediate_dense"](x)), tp_group)
+    return row_sharded_linear(p["output_dense"], gelu(linear(p["intermediate_dense"], x)),
+                              tp_group)
 
 
 def encoder_layer(cfg: SpeechEncoderConfig, p: nn.ModuleDict, x, key_bias, position_bias,
@@ -567,7 +564,7 @@ def encoder_inputs(model: SpeechEncoder, audio: torch.Tensor, num_valid: torch.T
     x = feats.transpose(1, 2)  # (B, T_frames, C_last)
     if cfg.feat_proj_layer_norm:
         x = _layer_norm(x, fp["layer_norm"], cfg.layer_norm_eps)
-    x = fp["projection"](x)
+    x = linear(fp["projection"], x)
 
     # Zero padded frames so the positional conv sees the same zeros an unpadded
     # run would have (HF zeroes them when an attention mask is passed).

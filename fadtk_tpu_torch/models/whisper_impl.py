@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..runner import profiling
-from .base import row_sharded_linear
+from .base import linear, row_sharded_linear
 from .precision import gelu
 
 
@@ -174,9 +174,9 @@ def _attention(p: Attention, x: torch.Tensor, kv: torch.Tensor, num_heads: int,
     def split(t, tlen):
         return t.reshape(b, tlen, heads, hd).transpose(1, 2)
 
-    q = split(p.q_proj(x), tq) * (hd ** -0.5)
-    k = split(p.k_proj(kv), tk)
-    v = split(p.v_proj(kv), tk)
+    q = split(linear(p.q_proj, x), tq) * (hd ** -0.5)
+    k = split(linear(p.k_proj, kv), tk)
+    v = split(linear(p.v_proj, kv), tk)
     out = (core or _attention_core)(q, k, v, causal)
     out = out.transpose(1, 2).reshape(b, tq, heads * hd)
     return row_sharded_linear(p.out_proj, out, tp_group)
@@ -210,7 +210,7 @@ def _encoder_attention(cfg: WhisperConfig, p: nn.ModuleDict, x, tp_group=None):
 def _feed_forward(cfg: WhisperConfig, p: nn.ModuleDict, x, tp_group=None):
     """x + fc2(GELU(fc1(LN(x)))): an encoder layer's feed-forward."""
     h = _ln(x, p["final_layer_norm"], cfg.layer_norm_eps)
-    return x + row_sharded_linear(p["fc2"], gelu(p["fc1"](h)), tp_group)
+    return x + row_sharded_linear(p["fc2"], gelu(linear(p["fc1"], h)), tp_group)
 
 
 def _decoder_attention(cfg: WhisperConfig, p: nn.ModuleDict, x, tp_group=None):
